@@ -1,0 +1,440 @@
+"""One VP9 frame step on torch tensors.
+
+Counterpart of `cuda_vp9_tpu/runtime/fused.py` (`make_frame_step`,
+`get_frame_step`) for the slice this package covers: 8-bit 4:2:0 frames
+(ss == (1, 1)), a dense wire (pages_tier == 0) and no lossless frames.
+Both packages read the same flat int16 wire built by
+`cuda_vp9_tpu/runtime/pack.py` or the native packer.
+
+step(pool, ring, kernels, flat) reconstructs one frame and updates
+`pool` and `ring` in place (JAX donates them; here the update is in
+place to keep one copy of the pool on the device):
+
+  residual transforms per coefficient bucket -> MC (mc4, mc8, mc16,
+  mc32, then the scaled-reference class mcs; compound averages from
+  each class's n_ref0 chunk on) -> inter residual add under mi_mask ->
+  intra wavefront, chunk by chunk -> loop filter -> pool refresh
+  (misc[5:13]) and ring row misc[13].
+
+The pool canvas [pha, pwa] may exceed the frame canvas [ha, wa] when
+scaled references are live; each slot then holds its frame in the
+top-left corner, as in JAX.  MC reads the pool directly with the
+normative edge clamps (ops/ref/inter.convolve_block semantics); the
+TPU's one-hot band formulation is not ported.
+
+`flat` is the HOST numpy buffer.  The step uploads it once and reads
+every loop bound (the misc trip counts, lf_on, the refresh flags, the
+ring slot and chunk_bs) from the host copy, so it never waits on the
+device for a number.
+
+Padding.  The packer pads records with y = 0 on the wire; JAX drops
+their writes (`mode="drop"`) and clamps their reads.  Torch wraps
+negative indices and a CUDA device asserts on an out-of-range one, so
+here every gather index is clamped into range and every scatter goes to
+a frame buffer with one trash element past its end, where padded
+records land.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cuda_vp9_tpu import models as M
+from cuda_vp9_tpu.runtime import pack
+
+from ..ops import transforms as T
+from ..ops.cuda.loopfilter import lf_frame
+from ..ops.device import stages
+
+I32 = torch.int32
+
+# (tile size, misc slot of the chunk count, misc slot of the first
+# compound-average chunk) per MC class, in the JAX step's order
+MC_CLASSES = ((4, 0, 23), (8, 1, 24), (16, 2, 25), (32, 33, 34))
+
+
+def cdiv(a, b):
+    return (a + b - 1) // b
+
+
+def require_slice(bd: int, ss, lossless: bool) -> None:
+    """Raise NotImplementedError, naming the ROADMAP queue-1 item, for a
+    frame outside the slice this package ports."""
+    if bd != 8:
+        raise NotImplementedError(
+            f"{bd}-bit frames: ROADMAP queue 1 item 6 (high bit depth)")
+    if tuple(ss) != (1, 1):
+        raise NotImplementedError(
+            f"chroma subsampling {tuple(ss)}: ROADMAP queue 1 item 9 "
+            "(4:4:4 and 4:2:2)")
+    if lossless:
+        raise NotImplementedError(
+            "lossless frames: ROADMAP queue 1 item 7 (WHT)")
+
+
+def frame_buffer(ha: int, wa: int, device) -> torch.Tensor:
+    """int32 [3*ha*wa + 1]: a [3, ha, wa] frame plus one trash element
+    that padded records write to."""
+    return torch.zeros(3 * ha * wa + 1, dtype=I32, device=device)
+
+
+def _block_index(buf, plane, y0, x0, valid, h, w, ha, wa):
+    """Linear indices [N, h, w] of the blocks buf[plane, y0 + i, x0 + j]
+    of a frame buffer (frame_buffer); padded records (valid false) point
+    at the trash element."""
+    dev = buf.device
+    ri = torch.arange(h, device=dev)[None, :, None]
+    rj = torch.arange(w, device=dev)[None, None, :]
+    lin = ((plane.long()[:, None, None] * ha + y0.long()[:, None, None] + ri)
+           * wa + x0.long()[:, None, None] + rj)
+    return torch.where(valid[:, None, None], lin, buf.numel() - 1)
+
+
+def _put_blocks(buf, plane, y0, x0, valid, vals, ha, wa):
+    """buf[plane, y0 + i, x0 + j] = vals[n, i, j] for the valid records;
+    the others write the trash element.  Destinations must be distinct."""
+    lin = _block_index(buf, plane, y0, x0, valid, vals.shape[1],
+                       vals.shape[2], ha, wa)
+    buf.index_put_((lin.reshape(-1),), vals.reshape(-1))
+
+
+# ----------------------------------------------------------------- residual
+
+
+def _scan_table(tx: int, ncoef: int, device) -> torch.Tensor:
+    """[4, ncoef] first-ncoef scan positions per tx_type."""
+    return torch.as_tensor(np.stack(
+        [np.asarray(M.SCAN_ORDERS[tx][t].scan[:ncoef], np.int64)
+         for t in range(4)]), device=device)
+
+
+def residual_units(Rbuf, coeffs, pos, tx: int, ha: int, wa: int):
+    """Inverse-transform N units and write them into the residual frame.
+
+    coeffs [N, n*n] int16 raster order; pos [N, 4] int32 = (plane, y + 1,
+    x, tx_type), y + 1 == 0 marking a padded record (fused.py:44-63)."""
+    if tx == 3:
+        resid = T.inv_txfm2d(coeffs, 3, 0)
+    else:
+        resid = T.inv_txfm2d_select(coeffs, tx, pos[:, 3] & 3)
+    _put_blocks(Rbuf, pos[:, 0], pos[:, 1] - 1, pos[:, 2], pos[:, 1] != 0,
+                resid, ha, wa)
+
+
+def expand_prefix(cm, tt, scan, n2: int):
+    """First-ncoef scan coefficients [N, ncoef] -> raster [N, n2]."""
+    full = torch.zeros(cm.shape[0], n2, dtype=cm.dtype, device=cm.device)
+    return full.scatter_(1, scan[(tt & 3).long()], cm)
+
+
+def expand_pairs(cm):
+    """Interleaved (raster_idx, value) int16 pairs [N, 2P] -> raster
+    [N, 1024].  Pad pairs are (0, 0); they go to index 1024, which is
+    dropped (fused.py:593-599)."""
+    idx = cm[:, 0::2].long()
+    val = cm[:, 1::2]
+    idx = torch.where((idx == 0) & (val == 0), 1024, idx.clamp(0, 1024))
+    full = torch.zeros(cm.shape[0], 1025, dtype=cm.dtype, device=cm.device)
+    return full.scatter_(1, idx, val)[:, :1024]
+
+
+# ----------------------------------------------------------------- inter
+
+
+def mc_predict(pool, kernels, hdr, u, w: int, bd: int):
+    """8-tap sub-pel prediction of N w x w tiles (ops/ref/inter
+    convolve_block semantics; counterpart of fused._mc_chunk_compute).
+
+    pool [8, 3, pha, pwa] int32; kernels [4, 16, 8] int32; hdr [N, 8]
+    each tile's chunk header (slot, plane, srow, cw, chh, ...); u [N, 4]
+    wire records (dx | filt << 13, dy + 1, sr, sc) with sr / sc =
+    ((src - dst) << 4) | subpel.  Reads rows clip(y0 - 3 + i, 0, chh - 1)
+    and columns clip(x0 - 3 + j, 0, cw - 1) of pool[slot, plane], filters
+    horizontally (rounded and clipped), then vertically.  Returns
+    [N, w, w] int32; padded records (dy + 1 == 0) give unspecified
+    values."""
+    dev = u.device
+    pha, pwa = pool.shape[2], pool.shape[3]
+    valid = u[:, 1] != 0
+    filt = torch.where(valid, u[:, 0] >> 13, 0) & 3
+    x0 = (u[:, 0] & 0x1FFF) + (u[:, 3] >> 4)     # sc >> 4: arithmetic
+    y0 = u[:, 1] - 1 + (u[:, 2] >> 4)
+    slot = torch.where(valid, hdr[:, 0], 0).clamp(0, 7)
+    plane = torch.where(valid, hdr[:, 1], 0).clamp(0, 2)
+    cw = torch.where(valid, hdr[:, 3], 1).clamp(1, pwa)
+    chh = torch.where(valid, hdr[:, 4], 1).clamp(1, pha)
+    t = torch.arange(w + 7, device=dev)[None, :]
+    rows = torch.minimum((y0[:, None] - 3 + t).clamp(min=0), chh[:, None] - 1)
+    cols = torch.minimum((x0[:, None] - 3 + t).clamp(min=0), cw[:, None] - 1)
+    base = (slot * 3 + plane) * pha
+    lin = (((base[:, None] + rows).long() * pwa)[:, :, None]
+           + cols.long()[:, None, :])
+    win = pool.reshape(-1)[lin]                   # [N, w+7, w+7]
+    fx = kernels[filt.long(), (u[:, 3] & 15).long()]     # [N, 8]
+    fy = kernels[filt.long(), (u[:, 2] & 15).long()]
+    maxv = (1 << bd) - 1
+    acc = fx[:, 0, None, None] * win[:, :, 0:w]
+    for k in range(1, 8):
+        acc = acc + fx[:, k, None, None] * win[:, :, k:k + w]
+    temp = ((acc + 64) >> 7).clamp(0, maxv)       # [N, w+7, w]
+    acc = fy[:, 0, None, None] * temp[:, 0:w, :]
+    for k in range(1, 8):
+        acc = acc + fy[:, k, None, None] * temp[:, k:k + w, :]
+    return ((acc + 64) >> 7).clamp(0, maxv)
+
+
+def mcs_predict(pool, kernels, hdr, u, bd: int):
+    """Scaled-reference 4x4 prediction of N tiles (counterpart of
+    fused._mcs_chunk_compute; vpx_scaled_2d semantics).  u [N, 16] wire
+    records: x0 = u[4], y0 = u[5] source origin, spx / spy = u[6] / u[7]
+    base phases, filt = u[8], crop cw / chh = u[9] / u[10], x / y step
+    q4 = u[12] / u[13] (<= 32).  Column c reads source column
+    x0 + ((spx + c * xs) >> 4) with phase (spx + c * xs) & 15; the 14
+    intermediate rows are clip(y0 - 3 + i, 0, chh - 1), and output row r
+    filters intermediate rows ((spy + r * ys) >> 4) + k.  Returns [N, 4, 4]
+    int32; padded records (u[2] == 0) give unspecified values."""
+    dev = u.device
+    pha, pwa = pool.shape[2], pool.shape[3]
+    valid = u[:, 2] != 0
+    filt = torch.where(valid, u[:, 8], 0).clamp(0, 3).long()
+    slot = torch.where(valid, hdr[:, 0], 0).clamp(0, 7)
+    plane = torch.where(valid, hdr[:, 1], 0).clamp(0, 2)
+    cw = torch.where(valid, u[:, 9], 1).clamp(1, pwa)
+    chh = torch.where(valid, u[:, 10], 1).clamp(1, pha)
+    xs = torch.where(valid, u[:, 12], 16).clamp(0, 32)
+    ys = torch.where(valid, u[:, 13], 16).clamp(0, 32)
+    c4 = torch.arange(4, device=dev)[None, :]
+    k8 = torch.arange(8, device=dev)
+    xq4 = u[:, 6, None] + c4 * xs[:, None]                    # [N, 4]
+    cols = torch.minimum(
+        ((u[:, 4, None] + (xq4 >> 4))[:, :, None] + k8 - 3).clamp(min=0),
+        cw[:, None, None] - 1)                                # [N, 4, 8]
+    rows = torch.minimum(
+        (u[:, 5, None] - 3 + torch.arange(14, device=dev)).clamp(min=0),
+        chh[:, None] - 1)                                     # [N, 14]
+    base = (slot * 3 + plane) * pha
+    lin = (((base[:, None] + rows).long() * pwa)[:, :, None, None]
+           + cols.long()[:, None, :, :])
+    win = pool.reshape(-1)[lin]                               # [N, 14, 4, 8]
+    fx = kernels[filt[:, None], (xq4 & 15).long()]            # [N, 4, 8]
+    maxv = (1 << bd) - 1
+    temp = (((fx[:, None] * win).sum(3) + 64) >> 7).clamp(0, maxv)
+    yq4 = u[:, 7, None] + c4 * ys[:, None]                    # [N, 4]
+    fy = kernels[filt[:, None], (yq4 & 15).long()]            # [N, 4, 8]
+    trow = ((yq4 >> 4)[:, :, None] + k8).clamp(0, 13).long()  # [N, 4, 8]
+    taps = temp[torch.arange(u.shape[0], device=dev)[:, None, None],
+                trow]                                         # [N, 4, 8, 4]
+    acc = (fy[:, :, :, None] * taps).sum(2, dtype=I32)
+    return ((acc + 64) >> 7).clamp(0, maxv)
+
+
+def _land(Fbuf, pred, plane, y0, x0, valid, n0: int, ha: int, wa: int):
+    """Land one MC class's predictions (fused._mc_pass): tiles [0, n0)
+    are first-reference predictions with distinct destinations, tiles
+    [n0, N) compound second predictions that average into them."""
+    args = (plane, y0, x0, valid)
+    if n0:
+        _put_blocks(Fbuf, *(a[:n0] for a in args), pred[:n0], ha, wa)
+    if n0 < pred.shape[0]:
+        rest = [a[n0:] for a in args]
+        cur = Fbuf[_block_index(Fbuf, *rest, pred.shape[1], pred.shape[2],
+                                ha, wa)]
+        _put_blocks(Fbuf, *rest, (cur + pred[n0:] + 1) >> 1, ha, wa)
+
+
+def mc_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
+            w: int, bd: int, ha: int, wa: int):
+    """One unscaled MC tile class: units [CAPC, CH, 4], hdrs [CAPC, 8];
+    chunks from n_ref0 on are compound second predictions."""
+    CH = units.shape[1]
+    u = units[:n_chunks].reshape(-1, 4)
+    hd = hdrs[:n_chunks].repeat_interleave(CH, 0)
+    pred = mc_predict(pool, kernels, hd, u, w, bd)
+    _land(Fbuf, pred, hd[:, 1], u[:, 1] - 1, u[:, 0] & 0x1FFF, u[:, 1] != 0,
+          n_ref0 * CH, ha, wa)
+
+
+def mcs_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
+             bd: int, ha: int, wa: int):
+    """The scaled-reference 4x4 class (fused._mcs_pass): units
+    [CAPC, CH, 16] with (plane, dx, dy + 1) in columns 0..2, hdrs
+    [CAPC, 4].  Runs after the unscaled classes, so a compound average
+    with a scaled first reference sees its first prediction."""
+    CH = units.shape[1]
+    u = units[:n_chunks].reshape(-1, 16)
+    hd = hdrs[:n_chunks].repeat_interleave(CH, 0)
+    pred = mcs_predict(pool, kernels, hd, u, bd)
+    _land(Fbuf, pred, u[:, 0], u[:, 2] - 1, u[:, 1], u[:, 2] != 0,
+          n_ref0 * CH, ha, wa)
+
+
+def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int):
+    """F = clip(F + R) over the non-skip inter mi cells (fused.py:620-633).
+    mp [mi_rows, cdiv(mi_cols, 16)] int32, 16 cells per (sign-extended)
+    word."""
+    bits = torch.arange(16, device=F.device, dtype=I32)
+    m = ((mp[:, :, None] >> bits) & 1).reshape(mi_rows, -1)[:, :mi_cols] != 0
+    maxv = (1 << bd) - 1
+    for planes, g in ((slice(0, 1), 8), (slice(1, 3), 4)):
+        cm = m.repeat_interleave(g, 0).repeat_interleave(g, 1)
+        h, w = cm.shape
+        f = F[planes, :h, :w]
+        f.copy_(torch.where(cm, (f + R[planes, :h, :w]).clamp(0, maxv), f))
+
+
+# ----------------------------------------------------------------- intra
+
+
+def intra_chunk(Fbuf, R, u, bs: int, bd: int):
+    """One intra chunk from its 4-int16 records (fused._intra_chunk):
+      w0 = x0/4 | plane << 14
+      w1 = (y0/4 + 1) | have_up << 15      (all-zero record = padding)
+      w2 = mode | n_above << 4 | n_left << 10
+      w3 = tl_mode | have_left << 2
+    u [CHUNK, 4] int32, sign-extended from int16."""
+    w0 = u[:, 0] & 0xFFFF
+    w1 = u[:, 1] & 0xFFFF
+    w2 = u[:, 2] & 0xFFFF
+    w3 = u[:, 3]
+    y0q = w1 & 0x7FFF
+    y0 = torch.where(y0q == 0, -32768, (y0q - 1) << 2)
+    stages.intra_wave(Fbuf, R, w0 >> 14, (w0 & 0x3FFF) << 2, y0, w2 & 15,
+                      (w2 >> 4) & 63, (w2 >> 10) & 63, w3 & 3, w1 >> 15,
+                      (w3 >> 2) & 1, bs=bs, bd=bd)
+
+
+# ----------------------------------------------------------------- frame step
+
+
+def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
+    """The step for one frame geometry and capacity tier (see the module
+    docstring).  step(pool, ring, kernels, flat) -> None."""
+    ha = ((mi_rows + 7) & ~7) * 8
+    wa = ((mi_cols + 7) & ~7) * 8
+    hc, wc = ha >> 1, wa >> 1
+    segs = layout.segs
+    scans = {}
+
+    def step(pool, ring, kernels, flat: np.ndarray):
+        dev = pool.device
+        pha, pwa = pool.shape[2], pool.shape[3]
+        if pha < ha or pwa < wa:
+            raise ValueError(f"pool canvas {(pha, pwa)} is smaller than "
+                             f"the frame canvas {(ha, wa)}")
+        with record_function("vp9.upload"):
+            flat_d = torch.from_numpy(flat).to(dev)
+
+        def host(name):
+            off, shape = segs[name]
+            return flat[off:off + int(np.prod(shape))].reshape(shape)
+
+        def seg(name, rows=None, dtype=I32):
+            """Device view of a segment (first `rows` rows), sign-extended
+            to int32 unless dtype is int16."""
+            off, shape = segs[name]
+            if rows is not None:
+                shape = (rows,) + tuple(shape[1:])
+            a = flat_d[off:off + int(np.prod(shape))].view(shape)
+            return a if dtype == torch.int16 else a.to(dtype)
+
+        misc = host("misc").astype(np.int64)
+        Fbuf = frame_buffer(ha, wa, dev)
+        Rbuf = frame_buffer(ha, wa, dev)
+        F = Fbuf[:-1].view(3, ha, wa)
+        R = Rbuf[:-1].view(3, ha, wa)
+
+        with record_function("vp9.residual"):
+            for name, tx, ncoef in pack.COEFF_BUCKETS:
+                n = int(misc[pack.MISC_TRIP[name]]) * pack.COEFF_CHUNK[name]
+                if not n:
+                    continue
+                cm = seg(f"coeff_{name}", n, torch.int16)
+                pos = seg(f"cpos_{name}", n)
+                n2 = (4 << tx) ** 2
+                if ncoef < n2:
+                    key = (tx, ncoef)
+                    if key not in scans:
+                        scans[key] = _scan_table(tx, ncoef, dev)
+                    cm = expand_prefix(cm, pos[:, 3], scans[key], n2)
+                residual_units(Rbuf, cm, pos, tx, ha, wa)
+            for name, chunk, trip in (
+                    ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
+                    ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
+                n = int(misc[trip]) * chunk
+                if n and f"coeff_{name}" in segs:
+                    residual_units(Rbuf,
+                                   expand_pairs(seg(f"coeff_{name}", n,
+                                                    torch.int16)),
+                                   seg(f"cpos_{name}", n), 3, ha, wa)
+
+        with record_function("vp9.inter"):
+            for w, n_slot, r0_slot in MC_CLASSES:
+                n_chunks = int(misc[n_slot])
+                if n_chunks:
+                    mc_pass(Fbuf, pool, kernels, seg(f"mc{w}", n_chunks),
+                            seg(f"mc{w}h", n_chunks), n_chunks,
+                            int(misc[r0_slot]), w, bd, ha, wa)
+            if "mcs" in segs and misc[14]:
+                mcs_pass(Fbuf, pool, kernels, seg("mcs", int(misc[14])),
+                         seg("mcsh", int(misc[14])), int(misc[14]),
+                         int(misc[15]), bd, ha, wa)
+            mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd)
+
+        with record_function("vp9.intra"):
+            n_intra = int(misc[3])
+            if n_intra:
+                chunk_bs = host("chunk_bs")
+                chunks = seg("intra", n_intra)
+                for i in range(n_intra):
+                    intra_chunk(Fbuf, R, chunks[i], 4 << int(chunk_bs[i]), bd)
+
+        with record_function("vp9.loopfilter"):
+            lf_frame(F, seg("lfm", dtype=torch.int16),
+                     seg("lf_thr", dtype=torch.int16), int(misc[4]),
+                     mi_rows=mi_rows, mi_cols=mi_cols, bd=bd)
+
+        with record_function("vp9.refresh"):
+            for i in range(8):
+                if misc[5 + i] > 0:
+                    if (pha, pwa) != (ha, wa):
+                        pool[i].zero_()
+                    pool[i, :, :ha, :wa].copy_(F)
+            out = torch.cat([F[0].reshape(-1), F[1, :hc, :wc].reshape(-1),
+                             F[2, :hc, :wc].reshape(-1)])
+            row = ring[int(misc[13])]
+            row[:out.numel()].copy_(out)
+            row[out.numel():].zero_()
+
+    return step
+
+
+def get_frame_step(mi_rows: int, mi_cols: int, tier: str,
+                   lossless: bool = False, bd: int = 8, ss=(1, 1),
+                   pool_ha: int | None = None):
+    """(step, caps, layout) for one frame geometry and capacity tier
+    ("full", "tight", "wide" or "scaled"; fused.get_frame_step).
+    pool_ha: the reference pool's canvas height when it exceeds the
+    frame's (scaled references).  Uncached: the caller keeps the result,
+    because the native packer caches per layout object."""
+    require_slice(bd, ss, lossless)
+    caps = pack.compute_caps(mi_rows, mi_cols, tier, lossless,
+                             pool_ha=pool_ha)
+    layout = pack.build_layout(caps, mi_rows, mi_cols, lossless, bd)
+    return make_frame_step(mi_rows, mi_cols, layout, bd), caps, layout
+
+
+def entry(device):
+    """(fn, example_args): the step at one 64x64 superblock on an
+    all-zero tight-tier flat, the counterpart of `__graft_entry__.entry`
+    as a check that the step builds and runs on `device`."""
+    step, caps, layout = get_frame_step(8, 8, "tight")
+    ha = wa = 64
+    pool = torch.zeros((8, 3, ha, wa), dtype=I32, device=device)
+    ring = torch.zeros((32, ha * wa + 2 * (ha >> 1) * (wa >> 1)),
+                       dtype=torch.uint8, device=device)
+    kernels = torch.as_tensor(np.asarray(M.FILTER_KERNELS, np.int32),
+                              device=device)
+    flat = np.zeros(cdiv(layout.size, pack.PAGE) * pack.PAGE, np.int16)
+    return step, (pool, ring, kernels, flat)

@@ -1,0 +1,60 @@
+"""The port's inverse transforms (cuda_vp9_torch/ops/transforms.py) against
+the JAX step's own calls of the shared reference, bit for bit.
+
+runtime/fused._residual_pass runs `T.inv_txfm2d` (32x32) and
+`T.inv_txfm2d_select` (4..16, per-unit tx_type) with xp=jnp and
+work_dtype=jnp.int16 at bd 8: the int16 WRAPLOW domain.  The same seeded
+coefficients go through both; full-range int16 coefficients drive the
+butterflies through their wrap points.  Tolerance 0: integer math."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cuda_vp9_torch.ops import transforms as TT
+from cuda_vp9_tpu.ops.ref import transforms as T
+
+
+# One intra-op thread per process: the suite runs several pytest
+# workers on the same cores, and an OpenMP pool of torch's in each
+# oversubscribes them (the decode tests ran about 50x slower).
+torch.set_num_threads(1)
+
+
+def _coeffs(rng, n_units, n, extreme):
+    if extreme:
+        return rng.integers(-32768, 32768, (n_units, n * n)).astype(np.int16)
+    c = rng.integers(-1024, 1025, (n_units, n * n))
+    return (c * (rng.random(c.shape) < 0.25)).astype(np.int16)
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("tx_size", [0, 1, 2, 3])
+def test_inv_txfm2d_matches_jax(tx_size, extreme):
+    rng = np.random.default_rng(100 + tx_size + 10 * extreme)
+    n = 4 << tx_size
+    for tt in ([0] if tx_size == 3 else [0, 1, 2, 3]):
+        c = _coeffs(rng, 48, n, extreme)
+        want = np.asarray(T.inv_txfm2d(jnp.asarray(c), tx_size, tt, 8,
+                                       xp=jnp, work_dtype=jnp.int16))
+        got = TT.inv_txfm2d(torch.from_numpy(c), tx_size, tt)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want), \
+            f"tx_size={tx_size} tx_type={tt} extreme={extreme}"
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("tx_size", [0, 1, 2])
+def test_inv_txfm2d_select_matches_jax(tx_size, extreme):
+    rng = np.random.default_rng(200 + tx_size + 10 * extreme)
+    n = 4 << tx_size
+    c = _coeffs(rng, 64, n, extreme)
+    tt = rng.integers(0, 4, 64).astype(np.int32)
+    want = np.asarray(T.inv_txfm2d_select(jnp.asarray(c), tx_size,
+                                          jnp.asarray(tt), 8, xp=jnp,
+                                          work_dtype=jnp.int16))
+    got = TT.inv_txfm2d_select(torch.from_numpy(c), tx_size,
+                               torch.from_numpy(tt))
+    assert np.array_equal(got.numpy(), want)
