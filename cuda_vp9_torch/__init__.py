@@ -1,33 +1,31 @@
-"""cuda_vp9_torch: the VP9 decoder's device side in PyTorch and CUDA.
+"""cuda_vp9_torch: the VP9 decoder with its device side in PyTorch and CUDA.
 
-The host side (IVF/WebM containers, the C++ parser and packer in
-`cuda_vp9_tpu/native`, the oracle decoder, `runtime/{pack,plan,lfmeta}`
-and `ops/ref`) is shared with the JAX package `cuda_vp9_tpu`, so both
-backends step from the same flat int16 wire.  This package ports the
-per-frame device step for 8-bit 4:2:0 streams (keyframes, intra-only and
-inter frames, compound prediction, scaled references):
+The package keeps its own copy of the host side of the JAX package
+`cuda_vp9_tpu` that this path needs (IVF/WebM readers, the C++ parser
+and packer in `native/`, the frame driver and headers in `decoder/`,
+`models/`, the NumPy oracle in `ops/ref`,
+`runtime/{pack,plan,lfmeta}`, `utils/md5`), so it reads the same flat
+int16 wire as the JAX step, and it ports the per-frame device step for
+bit depths 8, 10 and 12 and chroma 4:2:0, 4:4:4 and 4:2:2 (keyframes,
+intra-only and inter frames, compound prediction, scaled references):
 
-  ops/transforms.py       inverse DCT/ADST 4..32 (int16 WRAPLOW domain)
+  ops/transforms.py       inverse DCT/ADST 4..32 (int16 and int32 WRAPLOW)
   ops/device/stages.py    intra wavefront: the 10 predictors + residual
+  ops/device/lf_wave.py   4:2:2 chroma loop filter in luma-SB tile order
   ops/cuda/loopfilter.py  loop filter: CUDA kernel (csrc/loopfilter.cu)
                           and its plain torch twin
+  ops/cuda/tileprobe.py   shared-memory tile probe: CUDA kernel
+                          (csrc/tileprobe.cu) and its plain torch twin
   runtime/fused.py        one frame step: residual, MC, mask add, intra,
                           loop filter, pool refresh, output ring
   runtime/pipeline.py     TorchRecon, the NativeVp9Decoder recon backend
   convert.py              decoder state (pool, ring) into the port
-  codec.py                vp9_dx_torch(device) for the vpx_codec_* API
+  codec/                  vp9_dx_torch(device) and the vpx_codec_* API
   tools/vpxdec.py         `python -m cuda_vp9_torch.tools.vpxdec --md5`
   tools/profile_decode.py time per stage of the frame step
+  tools/tile_probe.py     the tile probe on the card
 
-The package imports torch and never jax.
+The package imports torch and never jax or cuda_vp9_tpu.  The C++ host
+library and the CUDA kernels are built at first use into
+`build/cuda_vp9_torch/` at the checkout root.
 """
-
-import importlib.util
-import sys
-
-if importlib.util.find_spec("jax") is None:
-    # No JAX on this machine: the shared host packer's three loop-filter
-    # pack names come from the NumPy shim (see _hostshim's docstring).
-    from . import _hostshim
-
-    sys.modules.setdefault("cuda_vp9_tpu.ops.pallas.loopfilter", _hostshim)

@@ -14,7 +14,9 @@ import torch
 
 def ref_canvas(rb, pha: int, pwa: int) -> np.ndarray:
     """A host RefBuffer as one pool slot: int32 [3, pha, pwa], each plane
-    in the top-left corner, zeros elsewhere (TpuReconFused._sync_slot)."""
+    (uint8, or uint16 above 8 bits; chroma at the plane's own size, so
+    full size at 4:4:4) in the top-left corner, zeros elsewhere
+    (TpuReconFused._sync_slot)."""
     canvas = np.zeros((3, pha, pwa), np.int32)
     for p in range(3):
         pl = np.asarray(rb.planes[p])
@@ -35,8 +37,8 @@ def pool_from_refs(refs, pool_geom, device) -> torch.Tensor:
 
 def state_from_tpu(recon, device):
     """(pool, ring) tensors on `device` from a JAX `TpuReconFused` after
-    its queued steps ran: pool int32 [8, 3, pha, pwa], ring uint8
-    [RING, nout]."""
+    its queued steps ran: pool int32 [8, 3, pha, pwa], ring [RING, nout]
+    in the ring's own dtype (uint8 at 8 bits, int16 above)."""
     recon.flush()
     pool = torch.from_numpy(np.array(recon._pool)).to(device)
     ring = torch.from_numpy(np.array(recon._ring)).to(device)

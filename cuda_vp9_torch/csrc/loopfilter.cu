@@ -1,11 +1,16 @@
-// VP9 deblocking loop filter for one 4:2:0 frame, hand-written for Hopper.
+// VP9 deblocking loop filter for one frame (a luma plane and two 4:2:0
+// chroma planes), hand-written for Hopper.
 //
 // Replaces cuda_vp9_tpu/ops/pallas/loopfilter.py `lf_frame` (with
 // `_make_kernel`, `_run_chains` and `_edge_chain`): the same int32 filter
-// math (vpx_dsp/loopfilter.c filter4/8/16 and the interior +4 edge), the
-// same packed metadata (lfm [n_sbs_pad, 2, 128] int16, bits | level << 4
-// per cell; thr [64, 4] int16 level -> (-, mblim, lim, hev)), applied in
-// the normative superblock order.
+// math (vpx_dsp/loopfilter.c filter4/8/16 and the interior +4 edge, and
+// their highbd forms: thresholds, flat tests and clamps scale by bd - 8
+// for bd 10 and 12), the same packed metadata (lfm [n_sbs_pad, 2, 128]
+// int16, bits | level << 4 per cell; thr [64, 4] int16 level -> (-,
+// mblim, lim, hev)), applied in the normative superblock order.  The
+// frame step also calls it on a 4:4:4 chroma plane, as plane 0 of a
+// canvas on the chroma cell grid with zero chroma fields, and on the luma
+// of a 4:2:2 frame (zero chroma fields), as the JAX step does.
 //
 // Order.  SB (r, c) needs (r, c-1) and (r-1, c+1) finished, so the host
 // loop launches one grid per anti-diagonal s = c + 2r with one block per
@@ -206,10 +211,13 @@ lf_wave_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
 
 }  // namespace
 
-// Filters F in place: one launch per SB anti-diagonal on `stream`.
-// Returns the first CUDA error (cudaGetLastError), 0 on success.
+// Filters F in place: one launch per SB anti-diagonal on `stream`.  Sets
+// *launched to the number of kernel launches made.  Returns the first
+// CUDA error (cudaGetLastError), 0 on success.
 extern "C" int vp9_lf_frame(void* F, const void* lfm, const void* thr,
-                            int ha, int wa, int bd, void* stream) {
+                            int ha, int wa, int bd, void* stream,
+                            int* launched) {
+  *launched = 0;
   const int sb_rows = ha / 64, sb_cols = wa / 64;
   const int n_waves = sb_cols + 2 * (sb_rows - 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -221,6 +229,7 @@ extern "C" int vp9_lf_frame(void* F, const void* lfm, const void* thr,
     lf_wave_kernel<<<r_hi - r_lo + 1, 128, 0, st>>>(
         static_cast<int32_t*>(F), static_cast<const int16_t*>(lfm),
         static_cast<const int16_t*>(thr), ha, wa, sb_cols, s, r_lo, bd);
+    ++*launched;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

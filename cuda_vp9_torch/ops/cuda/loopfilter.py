@@ -1,14 +1,17 @@
 """Whole-frame VP9 loop filter: the CUDA kernel and its plain torch twin.
 
 `lf_frame` is the counterpart of `cuda_vp9_tpu/ops/pallas/loopfilter.py`
-`lf_frame`, in place on an int32 [3, ha, wa] frame.  On a CUDA tensor it
+`lf_frame`, in place on an int32 [3, ha, wa] frame (a luma plane and two
+4:2:0 chroma planes, bit depth 8, 10 or 12).  On a CUDA tensor it
 launches the kernel of `csrc/loopfilter.cu` (one launch per superblock
 anti-diagonal) or raises; on a CPU tensor it runs `lf_frame_plain`, the
 same math in torch ops.  Both keep the Pallas kernel's order: SB (r, c)
 after (r, c-1) and (r-1, c+1); per SB all vertical edge chains, then all
 horizontal ones; per chain the main edge and the interior +4 edge.
 
-`launches` and `plain_calls` count the calls that went to each version.
+`launches` counts the kernel launches (one per anti-diagonal, as the C
+entry point reports them) and `plain_calls` the calls of the plain
+version.
 """
 
 from __future__ import annotations
@@ -204,7 +207,7 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     return fn
 
 
@@ -226,11 +229,12 @@ def lf_frame(F, lfm, thr, lf_on: int, *, mi_rows: int, mi_cols: int,
         return F
     global launches
     fn = _lib()
+    n = ctypes.c_int(0)
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
         err = fn(F.data_ptr(), lfm.data_ptr(), thr.data_ptr(), F.shape[1],
-                 F.shape[2], bd, stream)
-    launches += 1
+                 F.shape[2], bd, stream, ctypes.byref(n))
+    launches += n.value
     if err:
         raise RuntimeError(f"vp9_lf_frame: CUDA error {err}")
     return F

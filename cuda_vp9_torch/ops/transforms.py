@@ -1,17 +1,22 @@
-"""Inverse DCT/ADST 4..32 on torch tensors, bd = 8.
+"""Inverse DCT/ADST 4..32 on torch tensors, bd = 8, 10 and 12.
 
 Counterpart of `cuda_vp9_tpu/ops/ref/transforms.inv_txfm2d` and
-`inv_txfm2d_select` as `runtime/fused._residual_pass` calls them with
-`work_dtype=jnp.int16`: the WRAPLOW points are native int16 arithmetic
-(adds and subtracts wrap in int16), every product is widened to int32,
-dct_const_round_shift truncates back to int16, and the final 2-D round
-shift is done in int32 so it does not wrap again.
+`inv_txfm2d_select` as `runtime/fused._residual_pass` calls them:
 
-The 1-D butterflies are the shared reference's own (`ops/ref/transforms`
-`idct4 .. idct32`, `iadst4 .. iadst16`): they only touch their inputs
-through a domain object (`w`, `n`, `rs`) and `xp.stack`, so a torch
-domain runs them unchanged on CPU and CUDA tensors.  The 2-D wrappers
-below replace the reference's, which call NumPy's `.astype`.
+  * bd 8, `work_dtype=jnp.int16`: the WRAPLOW points are native int16
+    arithmetic (adds and subtracts wrap in int16), every product is
+    widened to int32, dct_const_round_shift truncates back to int16, and
+    the final 2-D round shift is done in int32 so it does not wrap again;
+  * bd 10 and 12, `work_dtype=jnp.int32`: every value is int32 and each
+    WRAPLOW point wraps explicitly to bd + 8 bits (the reference's
+    `_EmulatedDomain`); products wrap in int32 as they do in XLA.
+
+The 1-D butterflies are the reference's own (this package's copy,
+`ops/ref/transforms` `idct4 .. idct32`, `iadst4 .. iadst16`): they only
+touch their inputs through a domain object (`w`, `n`, `rs`) and
+`xp.stack`, so a torch domain runs them unchanged on CPU and CUDA
+tensors.  The 2-D wrappers below replace the reference's, which call
+NumPy's `.astype`.
 
 No WHT: lossless frames are outside this slice.
 """
@@ -20,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from cuda_vp9_tpu.ops.ref import transforms as T
+from .ref import transforms as T
 
 
 class _Torch16Domain:
@@ -39,6 +44,27 @@ class _Torch16Domain:
         return ((x + 8192) >> 14).to(torch.int16)
 
 
+class _TorchWrapDomain:
+    """WRAPLOW to bd + 8 bits in int32 arithmetic (ref: _EmulatedDomain
+    with make_wrap(bd))."""
+
+    def __init__(self, bd):
+        self._m = 1 << (bd + 7)
+
+    def _wrap(self, x):
+        return ((x + self._m) & (2 * self._m - 1)) - self._m
+
+    @staticmethod
+    def w(x):
+        return x
+
+    def n(self, x):
+        return self._wrap(x)
+
+    def rs(self, x):
+        return self._wrap((x + 8192) >> 14)
+
+
 class _TorchXp:
     """The one array-namespace call the 1-D butterflies make."""
 
@@ -47,8 +73,15 @@ class _TorchXp:
         return torch.stack(xs, dim=axis)
 
 
-_D = _Torch16Domain()
+_D16 = _Torch16Domain()
 _XP = _TorchXp()
+_DOMAINS = {8: _D16, 10: _TorchWrapDomain(10), 12: _TorchWrapDomain(12)}
+
+
+def _domain_input(coeffs, bd):
+    """(domain, coefficients in its working dtype): int16 at bd 8, int32
+    above."""
+    return _DOMAINS[bd], coeffs.to(torch.int16 if bd == 8 else torch.int32)
 
 
 def _ident(x):
@@ -60,39 +93,41 @@ def _finish(out, tx_size):
     return (out.to(torch.int32) + (1 << (shift - 1))) >> shift
 
 
-def inv_txfm2d(coeffs: torch.Tensor, tx_size: int,
-               tx_type: int) -> torch.Tensor:
-    """coeffs [N, n*n] int16 row-major (post-scan) -> residual [N, n, n]
-    int32 after the final round shift.  32x32 is always DCT_DCT."""
+def inv_txfm2d(coeffs: torch.Tensor, tx_size: int, tx_type: int,
+               bd: int = 8) -> torch.Tensor:
+    """coeffs [N, n*n] row-major (post-scan) -> residual [N, n, n] int32
+    after the final round shift.  32x32 is always DCT_DCT."""
     n = 4 << tx_size
     N = coeffs.shape[0]
+    D, coeffs = _domain_input(coeffs, bd)
     if tx_size == 3:
         tx_type = 0
     row_fn = T._1D[(tx_size, 1 if tx_type in (2, 3) else 0)]
     col_fn = T._1D[(tx_size, 1 if tx_type in (1, 3) else 0)]
-    rows = row_fn(coeffs.reshape(N * n, n), _D, _ident, _XP)
+    rows = row_fn(coeffs.reshape(N * n, n), D, _ident, _XP)
     cols = rows.reshape(N, n, n).transpose(1, 2).reshape(N * n, n)
-    out = col_fn(cols, _D, _ident, _XP).reshape(N, n, n).transpose(1, 2)
+    out = col_fn(cols, D, _ident, _XP).reshape(N, n, n).transpose(1, 2)
     return _finish(out, tx_size)
 
 
 def inv_txfm2d_select(coeffs: torch.Tensor, tx_size: int,
-                      tt: torch.Tensor) -> torch.Tensor:
+                      tt: torch.Tensor, bd: int = 8) -> torch.Tensor:
     """inv_txfm2d with a per-unit tx_type tt [N] (0..3), tx_size < 3: one
     DCT and one ADST 1-D pass per dimension, selected per unit."""
     assert tx_size < 3
     n = 4 << tx_size
     N = coeffs.shape[0]
+    D, coeffs = _domain_input(coeffs, bd)
     dct = T._1D[(tx_size, 0)]
     adst = T._1D[(tx_size, 1)]
     row_is_adst = ((tt & 2) != 0).reshape(N, 1, 1)
     col_is_adst = ((tt & 1) != 0).reshape(N, 1, 1)
     rows_in = coeffs.reshape(N * n, n)
     inter = torch.where(row_is_adst,
-                        adst(rows_in, _D, _ident, _XP).reshape(N, n, n),
-                        dct(rows_in, _D, _ident, _XP).reshape(N, n, n))
+                        adst(rows_in, D, _ident, _XP).reshape(N, n, n),
+                        dct(rows_in, D, _ident, _XP).reshape(N, n, n))
     cols_in = inter.transpose(1, 2).reshape(N * n, n)
     out = torch.where(col_is_adst,
-                      adst(cols_in, _D, _ident, _XP).reshape(N, n, n),
-                      dct(cols_in, _D, _ident, _XP).reshape(N, n, n))
+                      adst(cols_in, D, _ident, _XP).reshape(N, n, n),
+                      dct(cols_in, D, _ident, _XP).reshape(N, n, n))
     return _finish(out.transpose(1, 2), tx_size)

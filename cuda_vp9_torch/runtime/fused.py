@@ -1,10 +1,10 @@
 """One VP9 frame step on torch tensors.
 
 Counterpart of `cuda_vp9_tpu/runtime/fused.py` (`make_frame_step`,
-`get_frame_step`) for the slice this package covers: 8-bit 4:2:0 frames
-(ss == (1, 1)), a dense wire (pages_tier == 0) and no lossless frames.
-Both packages read the same flat int16 wire built by
-`cuda_vp9_tpu/runtime/pack.py` or the native packer.
+`get_frame_step`) for the slice this package covers: bit depths 8, 10 and
+12, chroma 4:2:0, 4:4:4 and 4:2:2, a dense wire (pages_tier == 0) and no
+lossless frames.  It reads the flat int16 wire of `runtime/pack.py` or of
+the native packer, the same bytes the JAX step reads.
 
 step(pool, ring, kernels, flat) reconstructs one frame and updates
 `pool` and `ring` in place (JAX donates them; here the update is in
@@ -15,6 +15,13 @@ place to keep one copy of the pool on the device):
   each class's n_ref0 chunk on) -> inter residual add under mi_mask ->
   intra wavefront, chunk by chunk -> loop filter -> pool refresh
   (misc[5:13]) and ring row misc[13].
+
+Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
+transforms run in the int32 WRAPLOW domain; the ring is int16.  The loop
+filter follows the chroma format: 4:2:0 is one `lf_frame` call; 4:4:4
+filters each chroma plane through the kernel's luma path on the chroma
+cell grid; 4:2:2 filters the chroma planes with `lf_plane_tiles`, in the
+order of the luma superblocks (fused.py:638-682).
 
 The pool canvas [pha, pwa] may exceed the frame canvas [ha, wa] when
 scaled references are live; each slot then holds its frame in the
@@ -41,37 +48,41 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from cuda_vp9_tpu import models as M
-from cuda_vp9_tpu.runtime import pack
-
+from .. import models as M
 from ..ops import transforms as T
 from ..ops.cuda.loopfilter import lf_frame
 from ..ops.device import stages
+from ..ops.device.lf_wave import lf_plane_tiles
+from . import pack
 
 I32 = torch.int32
 
 # (tile size, misc slot of the chunk count, misc slot of the first
 # compound-average chunk) per MC class, in the JAX step's order
 MC_CLASSES = ((4, 0, 23), (8, 1, 24), (16, 2, 25), (32, 33, 34))
+# chroma subsampling (ss_x, ss_y) the step runs: 4:2:0, 4:4:4, 4:2:2
+CHROMA_FORMATS = ((1, 1), (0, 0), (1, 0))
 
 
 def cdiv(a, b):
     return (a + b - 1) // b
 
 
-def require_slice(bd: int, ss, lossless: bool) -> None:
+def require_slice(lossless: bool, ss=(1, 1), scaled: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP queue-1 item, for a
-    frame outside the slice this package ports."""
-    if bd != 8:
-        raise NotImplementedError(
-            f"{bd}-bit frames: ROADMAP queue 1 item 6 (high bit depth)")
-    if tuple(ss) != (1, 1):
-        raise NotImplementedError(
-            f"chroma subsampling {tuple(ss)}: ROADMAP queue 1 item 9 "
-            "(4:4:4 and 4:2:2)")
+    frame outside the slice this package ports; such a frame never goes
+    to the host oracle."""
     if lossless:
         raise NotImplementedError(
             "lossless frames: ROADMAP queue 1 item 7 (WHT)")
+    if tuple(ss) not in CHROMA_FORMATS:
+        raise NotImplementedError(
+            f"chroma subsampling {tuple(ss)} (4:4:0): ROADMAP queue 1 "
+            "item 9")
+    if scaled and tuple(ss) != (1, 1):
+        raise NotImplementedError(
+            "scaled references with chroma other than 4:2:0: ROADMAP "
+            "queue 1 item 8")
 
 
 def frame_buffer(ha: int, wa: int, device) -> torch.Tensor:
@@ -110,15 +121,17 @@ def _scan_table(tx: int, ncoef: int, device) -> torch.Tensor:
          for t in range(4)]), device=device)
 
 
-def residual_units(Rbuf, coeffs, pos, tx: int, ha: int, wa: int):
+def residual_units(Rbuf, coeffs, pos, tx: int, ha: int, wa: int,
+                   bd: int = 8):
     """Inverse-transform N units and write them into the residual frame.
 
-    coeffs [N, n*n] int16 raster order; pos [N, 4] int32 = (plane, y + 1,
-    x, tx_type), y + 1 == 0 marking a padded record (fused.py:44-63)."""
+    coeffs [N, n*n] raster order, int16 at bd 8 and int32 above; pos
+    [N, 4] int32 = (plane, y + 1, x, tx_type), y + 1 == 0 marking a padded
+    record (fused.py:44-63)."""
     if tx == 3:
-        resid = T.inv_txfm2d(coeffs, 3, 0)
+        resid = T.inv_txfm2d(coeffs, 3, 0, bd)
     else:
-        resid = T.inv_txfm2d_select(coeffs, tx, pos[:, 3] & 3)
+        resid = T.inv_txfm2d_select(coeffs, tx, pos[:, 3] & 3, bd)
     _put_blocks(Rbuf, pos[:, 0], pos[:, 1] - 1, pos[:, 2], pos[:, 1] != 0,
                 resid, ha, wa)
 
@@ -270,15 +283,16 @@ def mcs_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
           n_ref0 * CH, ha, wa)
 
 
-def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int):
+def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int, ss=(1, 1)):
     """F = clip(F + R) over the non-skip inter mi cells (fused.py:620-633).
     mp [mi_rows, cdiv(mi_cols, 16)] int32, 16 cells per (sign-extended)
-    word."""
+    word; a chroma cell is (8 >> ss_y) x (8 >> ss_x) pixels."""
     bits = torch.arange(16, device=F.device, dtype=I32)
     m = ((mp[:, :, None] >> bits) & 1).reshape(mi_rows, -1)[:, :mi_cols] != 0
     maxv = (1 << bd) - 1
-    for planes, g in ((slice(0, 1), 8), (slice(1, 3), 4)):
-        cm = m.repeat_interleave(g, 0).repeat_interleave(g, 1)
+    for planes, gy, gx in ((slice(0, 1), 8, 8),
+                           (slice(1, 3), 8 >> ss[1], 8 >> ss[0])):
+        cm = m.repeat_interleave(gy, 0).repeat_interleave(gx, 1)
         h, w = cm.shape
         f = F[planes, :h, :w]
         f.copy_(torch.where(cm, (f + R[planes, :h, :w]).clamp(0, maxv), f))
@@ -308,12 +322,53 @@ def intra_chunk(Fbuf, R, u, bs: int, bd: int):
 # ----------------------------------------------------------------- frame step
 
 
-def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
-    """The step for one frame geometry and capacity tier (see the module
-    docstring).  step(pool, ring, kernels, flat) -> None."""
+def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
+                ss):
+    """Deblock F [3, ha, wa] in place by chroma format (fused.py:638-682);
+    `seg(name, dtype=...)` gives the device view of a wire segment."""
+    thr = seg("lf_thr", dtype=torch.int16)
+    ha, wa = F.shape[1:]
+    ssx, ssy = ss
+    hcc, wcc = ha >> ssy, wa >> ssx
+    # the lfm of a 4:4:4 or 4:2:2 frame ships zeroed chroma fields, so the
+    # first call leaves chroma alone; the chroma planes are filtered from
+    # their copies, as JAX does
+    Fc = (F[1].clone(), F[2].clone()) if ss != (1, 1) and lf_on else None
+    lf_frame(F, seg("lfm", dtype=torch.int16), thr, lf_on, mi_rows=mi_rows,
+             mi_cols=mi_cols, bd=bd)
+    if Fc is None:
+        return
+    if ss == (0, 0):
+        # 4:4:4: each chroma plane through the kernel's luma path on the
+        # chroma plane's own cell grid, as plane 0 of a [3, hac, wac] canvas
+        rc, cc = cdiv(mi_rows, 1 << ssy), cdiv(mi_cols, 1 << ssx)
+        hac, wac = ((rc + 7) & ~7) * 8, ((cc + 7) & ~7) * 8
+        lfm_c = seg("lfm_c", dtype=torch.int16)
+        for p in (1, 2):
+            Cp = torch.zeros((3, hac, wac), dtype=I32, device=F.device)
+            Cp[0, :hcc, :wcc] = Fc[p - 1][:hcc, :wcc]
+            lf_frame(Cp, lfm_c, thr, lf_on, mi_rows=rc, mi_cols=cc, bd=bd)
+            F[p, :hcc, :wcc] = Cp[0, :hcc, :wcc]
+    else:
+        # 4:2:2: 32-px-wide chroma tiles in luma-SB raster order
+        lfw = [seg(nm) for nm in ("lfw_v", "lfw_h", "lfw_mb", "lfw_lm",
+                                  "lfw_hv")]
+        for p in (1, 2):
+            F[p, :, :wcc] = lf_plane_tiles(Fc[p - 1][:, :wcc], *lfw, lf_on,
+                                           gx=8 >> ssx, gy=8 >> ssy, bd=bd)
+
+
+def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
+                    ss=(1, 1)):
+    """The step for one frame geometry, bit depth, chroma format and
+    capacity tier (see the module docstring).  step(pool, ring, kernels,
+    flat) -> None."""
+    ss = tuple(ss)
+    if ss not in CHROMA_FORMATS or bd not in (8, 10, 12):
+        raise ValueError(f"no frame step for bd {bd}, chroma {ss}")
     ha = ((mi_rows + 7) & ~7) * 8
     wa = ((mi_cols + 7) & ~7) * 8
-    hc, wc = ha >> 1, wa >> 1
+    hc, wc = ha >> ss[1], wa >> ss[0]
     segs = layout.segs
     scans = {}
 
@@ -350,7 +405,12 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
                 n = int(misc[pack.MISC_TRIP[name]]) * pack.COEFF_CHUNK[name]
                 if not n:
                     continue
-                cm = seg(f"coeff_{name}", n, torch.int16)
+                if bd == 8:
+                    cm = seg(f"coeff_{name}", n, torch.int16)
+                else:
+                    # hi/lo words: v = (hi << 15) + lo (fused.py:557-561)
+                    cm = ((seg(f"coeffh_{name}", n) << 15)
+                          + seg(f"coeff_{name}", n))
                 pos = seg(f"cpos_{name}", n)
                 n2 = (4 << tx) ** 2
                 if ncoef < n2:
@@ -358,10 +418,11 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
                     if key not in scans:
                         scans[key] = _scan_table(tx, ncoef, dev)
                     cm = expand_prefix(cm, pos[:, 3], scans[key], n2)
-                residual_units(Rbuf, cm, pos, tx, ha, wa)
+                residual_units(Rbuf, cm, pos, tx, ha, wa, bd)
             for name, chunk, trip in (
                     ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
                     ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
+                # 8-bit only: the layout has no coo buckets above 8 bits
                 n = int(misc[trip]) * chunk
                 if n and f"coeff_{name}" in segs:
                     residual_units(Rbuf,
@@ -380,7 +441,7 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
                 mcs_pass(Fbuf, pool, kernels, seg("mcs", int(misc[14])),
                          seg("mcsh", int(misc[14])), int(misc[14]),
                          int(misc[15]), bd, ha, wa)
-            mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd)
+            mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd, ss)
 
         with record_function("vp9.intra"):
             n_intra = int(misc[3])
@@ -391,9 +452,7 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
                     intra_chunk(Fbuf, R, chunks[i], 4 << int(chunk_bs[i]), bd)
 
         with record_function("vp9.loopfilter"):
-            lf_frame(F, seg("lfm", dtype=torch.int16),
-                     seg("lf_thr", dtype=torch.int16), int(misc[4]),
-                     mi_rows=mi_rows, mi_cols=mi_cols, bd=bd)
+            loop_filter(F, seg, int(misc[4]), mi_rows, mi_cols, bd, ss)
 
         with record_function("vp9.refresh"):
             for i in range(8):
@@ -401,6 +460,8 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8):
                     if (pha, pwa) != (ha, wa):
                         pool[i].zero_()
                     pool[i, :, :ha, :wa].copy_(F)
+            # the ring row's dtype (uint8, or int16 above 8 bits) is the
+            # ring's: copy_ narrows the int32 pixels
             out = torch.cat([F[0].reshape(-1), F[1, :hc, :wc].reshape(-1),
                              F[2, :hc, :wc].reshape(-1)])
             row = ring[int(misc[13])]
@@ -418,11 +479,18 @@ def get_frame_step(mi_rows: int, mi_cols: int, tier: str,
     pool_ha: the reference pool's canvas height when it exceeds the
     frame's (scaled references).  Uncached: the caller keeps the result,
     because the native packer caches per layout object."""
-    require_slice(bd, ss, lossless)
+    ss = tuple(ss)
+    require_slice(lossless, ss, tier == "scaled")
     caps = pack.compute_caps(mi_rows, mi_cols, tier, lossless,
-                             pool_ha=pool_ha)
-    layout = pack.build_layout(caps, mi_rows, mi_cols, lossless, bd)
-    return make_frame_step(mi_rows, mi_cols, layout, bd), caps, layout
+                             pool_ha=pool_ha, ss=ss)
+    layout = pack.build_layout(caps, mi_rows, mi_cols, lossless, bd, ss=ss)
+    return make_frame_step(mi_rows, mi_cols, layout, bd, ss), caps, layout
+
+
+def ring_dtype(bd: int) -> torch.dtype:
+    """The output ring's dtype: uint8 at 8 bits, int16 above (pixels are
+    at most 4095)."""
+    return torch.uint8 if bd == 8 else torch.int16
 
 
 def entry(device):
@@ -433,7 +501,7 @@ def entry(device):
     ha = wa = 64
     pool = torch.zeros((8, 3, ha, wa), dtype=I32, device=device)
     ring = torch.zeros((32, ha * wa + 2 * (ha >> 1) * (wa >> 1)),
-                       dtype=torch.uint8, device=device)
+                       dtype=ring_dtype(8), device=device)
     kernels = torch.as_tensor(np.asarray(M.FILTER_KERNELS, np.int32),
                               device=device)
     flat = np.zeros(cdiv(layout.size, pack.PAGE) * pack.PAGE, np.int16)

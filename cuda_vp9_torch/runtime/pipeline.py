@@ -4,10 +4,11 @@ Counterpart of `cuda_vp9_tpu/runtime/pipeline.py` `TpuReconFused`.  Per
 frame: pack ONE flat int16 buffer on the host (the C++ packer, or
 `runtime/pack.pack_frame` when the plan has no native parser), then run
 the frame step of `runtime/fused.py` on `device`.  The reference pool
-[8, 3, pha, pwa] int32 and a uint8 output ring of RING rows stay on the
-device; a frame's planes come back as LazyPlanes, fetched with all other
-pending rows in one device-to-host copy when first read, and always
-before their ring row is reused.
+[8, 3, pha, pwa] int32 and an output ring of RING rows (uint8, or int16
+above 8 bits) stay on the device; a frame's planes come back as
+LazyPlanes (uint16 numpy), fetched with all other pending rows in one
+device-to-host copy when first read, and always before their ring row is
+reused.
 
 Tiers as in JAX: intra-only frames pack the "full" tier, inter frames
 "tight", escalating to "wide" when tight overflows, and frames with a
@@ -16,12 +17,16 @@ tier, or whose reference lies outside the spec's scale range, is decoded
 by the host oracle (counted in `frames_on_host`), and the pool slots it
 refreshes are re-uploaded before a later device frame reads them
 (`_sync_slot`).  The pool canvas is the largest of the frame and its
-references, kept across frames until a keyframe changes it.
+references, kept across frames until a keyframe changes it, or the bit
+depth or chroma format changes.
 
-Frames outside the ported slice (bit depth other than 8, chroma other
-than 4:2:0, lossless) raise NotImplementedError naming the ROADMAP item;
-they never fall back to the host silently.  The flat ships dense: page
-compaction (`TpuReconFused._compact`) is not ported.
+The slice: bit depths 8, 10 and 12; chroma 4:2:0, 4:4:4 and 4:2:2;
+scaled references with 4:2:0 chroma.  4:2:0 frames pack with the C++
+packer, the others with `runtime/pack.pack_frame`, as in JAX.  Frames
+outside the slice (lossless, 4:4:0, scaled references with other chroma)
+raise NotImplementedError naming the ROADMAP item, where JAX sends the
+last two to its host oracle; they never go to the host here.  The flat
+ships dense: page compaction (`TpuReconFused._compact`) is not ported.
 """
 
 from __future__ import annotations
@@ -29,14 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cuda_vp9_tpu import models as M
-from cuda_vp9_tpu.decoder import constants as C
-from cuda_vp9_tpu.ops.ref import recon as ref_recon
-from cuda_vp9_tpu.ops.ref.inter import ScaleFactors
-from cuda_vp9_tpu.runtime import pack
-
 from .. import convert
-from . import fused
+from .. import models as M
+from ..decoder import constants as C
+from ..ops.ref import recon as ref_recon
+from ..ops.ref.inter import ScaleFactors
+from . import fused, pack
 
 
 def _align(mi: int) -> int:
@@ -47,15 +50,16 @@ class LazyPlanes:
     """Planes [y, u, v] (uint16 numpy) of a device-decoded frame, read
     from the output ring on first access."""
 
-    def __init__(self, recon, slot, ha, wa):
+    def __init__(self, recon, slot, ha, wa, ss=(1, 1)):
         self._recon = recon
         self._slot = slot
         self._geom = (ha, wa)
+        self._ss = ss
         self._planes = None
 
     def _set_from_ring(self, row):
         ha, wa = self._geom
-        hc, wc = ha >> 1, wa >> 1
+        hc, wc = ha >> self._ss[1], wa >> self._ss[0]
         ny, nc = ha * wa, hc * wc
         self._planes = [
             row[:ny].reshape(ha, wa).astype(np.uint16),
@@ -90,6 +94,7 @@ class TorchRecon:
         self._pool = None
         self._ring = None
         self._geom = None            # pool canvas (pha, pwa)
+        self._format = None          # (bit depth, chroma ss) of the pool
         self._slot_dirty = [True] * 8
         self._ring_slot = 0
         self._pending = []
@@ -97,11 +102,11 @@ class TorchRecon:
         self.frames_on_host = 0
         self.frames_wide = 0      # inter frames escalated to the wide tier
 
-    def _step(self, mi_rows, mi_cols, tier, pool_ha):
-        key = (mi_rows, mi_cols, tier, pool_ha)
+    def _step(self, mi_rows, mi_cols, tier, pool_ha, lossless, bd, ss):
+        key = (mi_rows, mi_cols, tier, pool_ha, lossless, bd, ss)
         if key not in self._steps:
             self._steps[key] = fused.get_frame_step(
-                mi_rows, mi_cols, tier, pool_ha=pool_ha)
+                mi_rows, mi_cols, tier, lossless, bd, ss, pool_ha=pool_ha)
         return self._steps[key]
 
     def flush(self):
@@ -121,27 +126,42 @@ class TorchRecon:
             rb is not None and (rb.width, rb.height) != (hdr.width, hdr.height)
             for rb in refs.values())
 
+    @staticmethod
+    def _can_run_on_device(hdr, refs) -> bool:
+        """TpuReconFused._can_run_on_device (pipeline.py:322-346) for a
+        frame inside the slice (require_slice): references outside the
+        spec's scale range go to the host oracle."""
+        return all(
+            ScaleFactors(rb.width, rb.height, hdr.width, hdr.height).is_valid()
+            for rb in refs.values() if rb is not None)
+
     def _ensure_pool(self, hdr, refs):
         """(Re)allocate the pool and ring for the canvas that holds the
         frame and its references (TpuReconFused._ensure_pool): kept while
-        it fits, except that a keyframe resets it to its own need."""
+        it fits and the format holds, except that a keyframe resets it to
+        its own need."""
         pha, pwa = _align(hdr.mi_rows), _align(hdr.mi_cols)
         if not hdr.frame_is_intra_only:
             for rb in refs.values():
                 if rb is not None:
                     pha = max(pha, _align((rb.height + 7) // 8))
                     pwa = max(pwa, _align((rb.width + 7) // 8))
+        ss = (hdr.subsampling_x, hdr.subsampling_y)
+        fmt = (hdr.bit_depth, ss)
         cur = self._geom
-        if cur is not None and pha <= cur[0] and pwa <= cur[1] and not (
-                hdr.frame_type == C.KEY_FRAME and (pha, pwa) != cur):
+        if cur is not None and fmt == self._format and pha <= cur[0] \
+                and pwa <= cur[1] and not (
+                    hdr.frame_type == C.KEY_FRAME and (pha, pwa) != cur):
             return cur
         self.flush()
-        nout = pha * pwa + 2 * (pha >> 1) * (pwa >> 1)
+        nout = pha * pwa + 2 * (pha >> ss[1]) * (pwa >> ss[0])
         self._pool = torch.zeros((8, 3, pha, pwa), dtype=torch.int32,
                                  device=self.device)
-        self._ring = torch.zeros((self.RING, nout), dtype=torch.uint8,
+        self._ring = torch.zeros((self.RING, nout),
+                                 dtype=fused.ring_dtype(hdr.bit_depth),
                                  device=self.device)
         self._geom = (pha, pwa)
+        self._format = fmt
         self._slot_dirty = [True] * 8
         return self._geom
 
@@ -153,14 +173,11 @@ class TorchRecon:
 
     def __call__(self, plan, refs):
         hdr = plan.hdr
-        fused.require_slice(hdr.bit_depth,
+        fused.require_slice(bool(hdr.lossless),
                             (hdr.subsampling_x, hdr.subsampling_y),
-                            bool(hdr.lossless))
+                            self._scaled(hdr, refs))
         planes = None
-        if not self._scaled(hdr, refs) or all(
-                ScaleFactors(rb.width, rb.height, hdr.width,
-                             hdr.height).is_valid()
-                for rb in refs.values() if rb is not None):
+        if self._can_run_on_device(hdr, refs):
             planes = self._recon_device(plan, refs)
         if planes is not None:
             self.frames_on_device += 1
@@ -174,6 +191,7 @@ class TorchRecon:
 
     def _recon_device(self, plan, refs):
         hdr = plan.hdr
+        ss = (hdr.subsampling_x, hdr.subsampling_y)
         ha, wa = _align(hdr.mi_rows), _align(hdr.mi_cols)
         pha, pwa = self._ensure_pool(hdr, refs)
         pool_ha = pha if (pha, pwa) != (ha, wa) else None
@@ -188,9 +206,10 @@ class TorchRecon:
         nparser = getattr(plan, "native_parser", None)
 
         def pack_tier(tier):
-            step, caps, layout = self._step(hdr.mi_rows, hdr.mi_cols, tier,
-                                            pool_ha)
-            if nparser is not None:
+            step, caps, layout = self._step(
+                hdr.mi_rows, hdr.mi_cols, tier, pool_ha, bool(hdr.lossless),
+                hdr.bit_depth, ss)
+            if nparser is not None and ss == (1, 1):
                 flat = nparser.pack(plan, refs, caps, layout, ring_slot=slot,
                                     pool_ha=pool_ha)
             else:
@@ -209,7 +228,7 @@ class TorchRecon:
         if flat is None:
             return None
         step(self._pool, self._ring, self.kernels, flat)
-        planes = LazyPlanes(self, slot, ha, wa)
+        planes = LazyPlanes(self, slot, ha, wa, ss)
         self._pending.append(planes)
         self._ring_slot = slot + 1
         for i in range(8):

@@ -29,13 +29,11 @@ from contextlib import contextmanager
 
 import torch
 
-from cuda_vp9_tpu.codec import (CodecCtx, DecCfg, FrameIter,
-                                vpx_codec_dec_init, vpx_codec_decode,
-                                vpx_codec_destroy, vpx_codec_get_frame)
-from cuda_vp9_tpu.containers import open_video
-from cuda_vp9_tpu.utils.md5 import frame_md5
-
-from ..codec import vp9_dx_torch
+from ..codec import (CodecCtx, DecCfg, FrameIter, vp9_dx_torch,
+                     vpx_codec_dec_init, vpx_codec_decode, vpx_codec_destroy,
+                     vpx_codec_get_frame)
+from ..containers import open_video
+from ..utils.md5 import frame_md5
 from ..runtime import fused
 
 

@@ -7,7 +7,8 @@ Usage:
 
 --md5 prints one `<md5>  img-WxH-NNNN.i420` line per frame, the lines of
 `cuda_vp9_tpu/tools/vpxdec.py --md5` and of the golden
-`tests/fixtures/*.md5` files.
+`tests/fixtures/*.md5` files; above 8 bits each sample is hashed as two
+little-endian bytes, as libvpx's vpxdec does.
 """
 
 from __future__ import annotations
@@ -16,13 +17,11 @@ import argparse
 import sys
 from collections import deque
 
-from cuda_vp9_tpu.codec import (CodecCtx, DecCfg, FrameIter,
-                                vpx_codec_dec_init, vpx_codec_decode,
-                                vpx_codec_destroy, vpx_codec_get_frame)
-from cuda_vp9_tpu.containers import open_video
-from cuda_vp9_tpu.utils.md5 import frame_md5
-
-from ..codec import vp9_dx_torch
+from ..codec import (CodecCtx, DecCfg, FrameIter, vp9_dx_torch,
+                     vpx_codec_dec_init, vpx_codec_decode, vpx_codec_destroy,
+                     vpx_codec_get_frame)
+from ..containers import open_video
+from ..utils.md5 import frame_md5
 
 # frames held back before printing, so the output ring is fetched in one
 # device-to-host copy per ring of frames

@@ -1,13 +1,20 @@
 """Whole streams through the port on the CPU: TorchRecon("cpu") behind the
-native parser and packer, every frame's MD5 against the golden files.
+port's own native parser and packer, every frame's MD5 against the golden
+files.
 
-The streams cover what the slice runs: keyframes (kf02, mn02), inter
+The streams cover what the port runs: keyframes (kf02, mn02), inter
 frames (in01), compound prediction with scaled references (cp01),
-inter frames made of intra blocks (dn01), and inter frames that overflow
-the tight tier and escalate to the wide one (io01).  Frames outside the
-slice raise NotImplementedError naming their ROADMAP item.  A subprocess
-decodes kf02 through `python -m cuda_vp9_torch.tools.vpxdec` with `jax`
-blocked, as on a machine without JAX."""
+inter frames made of intra blocks (dn01), inter frames that overflow
+the tight tier and escalate to the wide one (io01), 10- and 12-bit
+4:2:0 (p2_01, p2_02, p2_04), 4:4:4 at 8 and 10 bits (p1_01, p3_01) and
+4:2:2 (p1_02, p1_04).  Each high-bit-depth or non-4:2:0 stream is decoded
+up to its first frame with the loop filter on, or its first inter frame.
+Frames outside the port (lossless, 4:4:0, scaled references with
+chroma other than 4:2:0) raise NotImplementedError naming their ROADMAP
+item.  A subprocess decodes kf02 and p2_01 through
+`python -m cuda_vp9_torch.tools.vpxdec` with `jax` and `cuda_vp9_tpu`
+blocked, as on a machine without them.  The 1080p 10-bit stream hb01 is
+decoded (frame 0) in the slow tier."""
 
 import os
 import subprocess
@@ -18,9 +25,9 @@ import pytest
 import torch
 
 from cuda_vp9_torch import convert
+from cuda_vp9_torch.decoder.frame import (NativeVp9Decoder,
+                                          native_decode_stream_md5)
 from cuda_vp9_torch.runtime.pipeline import TorchRecon
-from cuda_vp9_tpu.decoder.frame import (NativeVp9Decoder,
-                                        native_decode_stream_md5)
 
 from conftest import FIXTURES
 
@@ -34,7 +41,11 @@ ROOT = Path(__file__).resolve().parent.parent
 # (stream, frames checked)
 STREAMS = [("kf02_176x144", 5), ("mn02_32x24", 6), ("in01_176x144", 4),
            ("cp01_352x288_compound", 8), ("dn01_176x144_dense", 4),
-           ("io01_176x144_intraonly", 6)]
+           ("io01_176x144_intraonly", 6),
+           ("p2_01_176x144_10b", 2), ("p2_02_176x144_12b", 1),
+           ("p2_04_176x144_12b_inter", 2), ("p3_01_176x144_444_10b", 5),
+           ("p1_01_176x144_444", 5), ("p1_02_176x144_422", 2),
+           ("p1_04_176x144_422_long", 2)]
 
 
 def _golden(name):
@@ -54,15 +65,39 @@ def test_torch_recon_md5(name, n):
         assert rec.frames_wide > 0, "no frame escalated to the wide tier"
 
 
-@pytest.mark.parametrize("name,item", [
-    ("ll01_176x144_lossless", "item 7"), ("p2_01_176x144_10b", "item 6"),
-    ("p1_01_176x144_444", "item 9")])
-def test_frames_outside_the_slice_raise(name, item):
+def _as_440(hdr):
+    hdr.subsampling_y = 1            # 4:4:4 -> 4:4:0
+
+
+def _scaled_refs(hdr):
+    if not hdr.frame_is_intra_only:
+        hdr.width += 8               # every reference now has another size
+
+
+@pytest.mark.parametrize("name,n,patch,item", [
+    ("ll01_176x144_lossless", 1, None, "item 7"),
+    ("ll02_96x64_lossless_inter", 1, None, "item 7"),
+    ("p1_01_176x144_444", 1, _as_440, "item 9"),
+    ("p1_01_176x144_444", 2, _scaled_refs, "item 8")],
+    ids=["ll01", "ll02", "440", "scaled_444"])
+def test_frames_outside_the_slice_raise(name, n, patch, item):
+    """Lossless frames, 4:4:0 chroma and scaled references with chroma
+    other than 4:2:0 raise, naming their ROADMAP item, and never go to the
+    host.  No fixture is 4:4:0 or scales a 4:4:4 reference, so those two
+    cases change the header of p1_01 (8-bit 4:4:4) after the parse."""
+    rec = TorchRecon("cpu")
+
+    def recon_fn(plan, refs):
+        if patch is not None:
+            patch(plan.hdr)
+        return rec(plan, refs)
+
     with pytest.raises(NotImplementedError, match=item):
         for _ in native_decode_stream_md5(str(FIXTURES / f"{name}.ivf"),
-                                          max_frames=1,
-                                          recon_fn=TorchRecon("cpu")):
+                                          max_frames=n, recon_fn=recon_fn,
+                                          lag=0):
             pass
+    assert rec.frames_on_host == 0 and rec.frames_on_device == n - 1
 
 
 def test_pool_from_refs_matches_device_pool():
@@ -70,7 +105,7 @@ def test_pool_from_refs_matches_device_pool():
     from the decoder's reference slots equals the device pool."""
     rec = TorchRecon("cpu")
     dec = NativeVp9Decoder(recon_fn=rec)
-    from cuda_vp9_tpu.containers import IvfReader
+    from cuda_vp9_torch.containers import IvfReader
     with IvfReader(str(FIXTURES / "kf02_176x144.ivf")) as r:
         for data, _ in r:
             dec.decode(data)
@@ -79,23 +114,56 @@ def test_pool_from_refs_matches_device_pool():
     assert torch.equal(pool, rec._pool)
 
 
+def test_pool_from_refs_matches_device_pool_10bit_444():
+    """The same after frame 0 of p3_01 (10-bit 4:4:4): uint16 reference
+    planes, full-size chroma planes, and an int16 output ring."""
+    from cuda_vp9_torch.containers import IvfReader
+    rec = TorchRecon("cpu")
+    dec = NativeVp9Decoder(recon_fn=rec)
+    with IvfReader(str(FIXTURES / "p3_01_176x144_444_10b.ivf")) as r:
+        dec.decode(next(iter(r))[0])
+    assert rec.frames_on_device == 1 and rec._ring.dtype == torch.int16
+    assert dec.ref_slots[0].planes[1].shape == dec.ref_slots[0].planes[0].shape
+    pool = convert.pool_from_refs(dec.ref_slots, rec._geom, "cpu")
+    assert torch.equal(pool, rec._pool)
+    assert pool.max() > 255
+
+
 def test_cli_decodes_without_jax():
-    ivf = FIXTURES / "kf02_176x144.ivf"
+    """kf02 (8-bit) and p2_01 (10-bit: LE16 MD5s) through the CLI, in one
+    process where `jax` and `cuda_vp9_tpu` cannot be imported."""
+    names = ("kf02_176x144", "p2_01_176x144_10b")
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
-        f"sys.argv = ['vpxdec', {str(ivf)!r}, '--md5', '--device', 'cpu']\n"
-        "try:\n"
-        "    runpy.run_module('cuda_vp9_torch.tools.vpxdec',"
+        "sys.modules['cuda_vp9_tpu'] = None\n"
+        f"for ivf in {[str(FIXTURES / f'{n}.ivf') for n in names]!r}:\n"
+        "    sys.argv = ['vpxdec', ivf, '--md5', '--device', 'cpu']\n"
+        "    try:\n"
+        "        runpy.run_module('cuda_vp9_torch.tools.vpxdec',"
         " run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert not e.code, e.code\n"
-        "jax = sorted(m for m, v in sys.modules.items() if v is not None\n"
-        "             and m.split('.')[0] in ('jax', 'jaxlib'))\n"
-        "print('jax modules:', jax, file=sys.stderr)\n"
-        "assert not jax\n")
+        "    except SystemExit as e:\n"
+        "        assert not e.code, e.code\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', "
+        "'cuda_vp9_tpu'))\n"
+        "print('jax modules:', bad, file=sys.stderr)\n"
+        "assert not bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        env={**os.environ, "OMP_NUM_THREADS": "1"},
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert r.stdout == (FIXTURES / "kf02_176x144.md5").read_text()
+    assert r.stdout == "".join((FIXTURES / f"{n}.md5").read_text()
+                               for n in names)
+
+
+@pytest.mark.slow
+def test_hb01_frame0_matches_golden():
+    """Slow: a 1080p 10-bit keyframe through the plain torch step on the
+    CPU (about 10 s)."""
+    rec = TorchRecon("cpu")
+    got = [d for _, d in native_decode_stream_md5(
+        str(FIXTURES / "large" / "hb01_1920x1080_10b.ivf"), max_frames=1,
+        recon_fn=rec, lag=0)]
+    assert got == _golden("large/hb01_1920x1080_10b")[:1]
+    assert rec.frames_on_device == 1 and rec.frames_on_host == 0

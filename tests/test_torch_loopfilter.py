@@ -2,29 +2,32 @@
 
   * `lf_frame_plain` against the Pallas `lf_frame` in interpret mode at
     one superblock, and against the NumPy oracle's window filters applied
-    in the normative order (tests/test_pallas_lf._ref_filter) at 2x3;
+    in the normative order (tests/test_pallas_lf._ref_filter) at 2x3, at
+    bit depths 8, 10 and 12, and on the 4:4:4 chroma-plane call (one
+    chroma plane as plane 0 of a [3, hac, wac] canvas, zero chroma
+    fields);
   * `lf_on = 0` is the identity, and a CPU tensor takes the plain path;
-  * `_hostshim` against the Pallas module's three pack names, byte for
-    byte;
-  * the CUDA kernel against `lf_frame_plain` on the card (marked `cuda`;
-    skips without a device).  This file imports JAX only inside the tests
-    that compare with it, so on a machine without JAX the kernel test
-    runs with `python -m pytest --noconftest -m cuda
+  * the port's `runtime/lfmeta` pack names against the Pallas module's,
+    byte for byte;
+  * the CUDA kernel against `lf_frame_plain` on the card at bit depths 8,
+    10 and 12 and on the 4:4:4 chroma canvas (marked `cuda`; skips
+    without a device).  This file imports JAX only inside the tests that
+    compare with it, and the oracle (`cuda_vp9_tpu.ops.ref`, NumPy) only
+    where it is needed, so on a machine without JAX the kernel tests run
+    with `python -m pytest --noconftest -m cuda
     tests/test_torch_loopfilter.py`.
 
-Inputs are seeded: 8x8 blocks of random level and noise amplitude, so
-every filter width engages, and edge metadata as test_pallas_lf builds
-it.  Tolerance 0: integer math."""
-
-import sys
+Inputs are seeded: 8x8 blocks of random level and noise amplitude (both
+scaled to the bit depth), so every filter width engages, and edge
+metadata as test_pallas_lf builds it.  Tolerance 0: integer math."""
 
 import numpy as np
 import pytest
 import torch
 
-from cuda_vp9_torch import _hostshim
 from cuda_vp9_torch.ops.cuda import loopfilter as LF
-from cuda_vp9_tpu.ops.ref.loopfilter import make_thresholds
+from cuda_vp9_torch.ops.ref.loopfilter import make_thresholds
+from cuda_vp9_torch.runtime import lfmeta
 
 
 # One intra-op thread per process: the suite runs several pytest
@@ -33,12 +36,14 @@ from cuda_vp9_tpu.ops.ref.loopfilter import make_thresholds
 torch.set_num_threads(1)
 
 
-def _pixels(rng, h, w):
-    lvl = rng.integers(0, 256, (h // 8, w // 8))
-    amp = rng.choice([1, 3, 9, 40], (h // 8, w // 8))
-    noise = rng.integers(-64, 65, (h, w)) % np.repeat(
+def _pixels(rng, h, w, bd=8):
+    s = bd - 8
+    lvl = rng.integers(0, 256 << s, (h // 8, w // 8))
+    amp = rng.choice([1, 3, 9, 40], (h // 8, w // 8)) << s
+    noise = rng.integers(-64 << s, (64 << s) + 1, (h, w)) % np.repeat(
         np.repeat(amp, 8, 0), 8, 1)
-    return np.clip(np.repeat(np.repeat(lvl, 8, 0), 8, 1) + noise, 0, 255)
+    return np.clip(np.repeat(np.repeat(lvl, 8, 0), 8, 1) + noise, 0,
+                   (1 << bd) - 1)
 
 
 def _cells(rng, R, C, top_off):
@@ -55,29 +60,46 @@ def _cells(rng, R, C, top_off):
     return rng.integers(0, 64, (R, C)), (m16, m8, m4, m4i)
 
 
-def _inputs(rng, mi_rows, mi_cols):
+def _inputs(rng, mi_rows, mi_cols, bd=8):
     """(F [3, ha, wa] int32, meta_y, meta_uv, thr tables, lfm, thr_t)."""
     ha, wa = ((mi_rows + 7) & ~7) * 8, ((mi_cols + 7) & ~7) * 8
     F = np.zeros((3, ha, wa), np.int32)
-    F[0] = _pixels(rng, ha, wa)
+    F[0] = _pixels(rng, ha, wa, bd)
     for p in (1, 2):
-        F[p, :ha // 2, :wa // 2] = _pixels(rng, ha // 2, wa // 2)
+        F[p, :ha // 2, :wa // 2] = _pixels(rng, ha // 2, wa // 2, bd)
     R2, C2 = (mi_rows + 1) // 2, (mi_cols + 1) // 2
     lvl_y, vy = _cells(rng, mi_rows, mi_cols, False)
     _, hy = _cells(rng, mi_rows, mi_cols, True)
     lvl_uv, vuv = _cells(rng, R2, C2, False)
     _, huv = _cells(rng, R2, C2, True)
     thr = make_thresholds(int(rng.integers(0, 8)))
-    lfm = _hostshim.pack_lfm_fields(lvl_y, vy, hy, lvl_uv, vuv, huv,
-                                    mi_rows, mi_cols)
+    lfm = lfmeta.pack_lfm_fields(lvl_y, vy, hy, lvl_uv, vuv, huv,
+                                 mi_rows, mi_cols)
     return (F, (lvl_y, vy, hy), (lvl_uv, vuv, huv), thr, lfm,
-            _hostshim.pack_lf_thresholds(thr))
+            lfmeta.pack_lf_thresholds(thr))
 
 
-def _plain(F, lfm, thr_t, lf_on, mi_rows, mi_cols):
+def _inputs_444_chroma(rng, rc, cc, bd):
+    """The 4:4:4 chroma-plane call of the frame step: a chroma plane as
+    plane 0 of a [3, hac, wac] canvas, its cells in luma format and zero
+    chroma fields (runtime/pack._pack_lf).  Returns (canvas, meta, thr
+    tables, lfm, thr_t)."""
+    hac, wac = ((rc + 7) & ~7) * 8, ((cc + 7) & ~7) * 8
+    C = np.zeros((3, hac, wac), np.int32)
+    C[0] = _pixels(rng, hac, wac, bd)
+    lvl, v = _cells(rng, rc, cc, False)
+    _, h = _cells(rng, rc, cc, True)
+    thr = make_thresholds(int(rng.integers(0, 8)))
+    z1 = np.zeros((1, 1), lvl.dtype)
+    zm = (np.zeros((1, 1), bool),) * 4
+    lfm = lfmeta.pack_lfm_fields(lvl, v, h, z1, zm, zm, rc, cc)
+    return C, (lvl, v, h), thr, lfm, lfmeta.pack_lf_thresholds(thr)
+
+
+def _plain(F, lfm, thr_t, lf_on, mi_rows, mi_cols, bd=8):
     Ft = torch.from_numpy(F.copy())
     LF.lf_frame_plain(Ft, torch.from_numpy(lfm), torch.from_numpy(thr_t),
-                      lf_on, mi_rows=mi_rows, mi_cols=mi_cols, bd=8)
+                      lf_on, mi_rows=mi_rows, mi_cols=mi_cols, bd=bd)
     return Ft.numpy()
 
 
@@ -95,19 +117,48 @@ def test_plain_matches_pallas_interpret():
     assert np.array_equal(got, want)
 
 
-def test_plain_matches_oracle_order():
+def _check_oracle_order(seed, bd):
     from test_pallas_lf import _ref_filter
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     mi_rows, mi_cols = 15, 23                   # 2x3 SBs, ragged mi grid
-    F, meta_y, meta_uv, thr, lfm, thr_t = _inputs(rng, mi_rows, mi_cols)
+    F, meta_y, meta_uv, thr, lfm, thr_t = _inputs(rng, mi_rows, mi_cols, bd)
     ha, wa = F.shape[1:]
     planes = [F[0].astype(np.int64), F[1, :ha // 2, :wa // 2].astype(
         np.int64), F[2, :ha // 2, :wa // 2].astype(np.int64)]
-    _ref_filter(planes, meta_y, meta_uv, thr, 8)
-    got = _plain(F, lfm, thr_t, 1, mi_rows, mi_cols)
+    _ref_filter(planes, meta_y, meta_uv, thr, bd)
+    got = _plain(F, lfm, thr_t, 1, mi_rows, mi_cols, bd)
+    assert (got != F).any()
     assert np.array_equal(got[0], planes[0]), "luma"
     assert np.array_equal(got[1, :ha // 2, :wa // 2], planes[1]), "U"
     assert np.array_equal(got[2, :ha // 2, :wa // 2], planes[2]), "V"
+
+
+def test_plain_matches_oracle_order():
+    _check_oracle_order(11, 8)
+
+
+@pytest.mark.parametrize("bd", [10, 12])
+def test_plain_matches_oracle_order_high_bitdepth(bd):
+    _check_oracle_order(11 + bd, bd)
+
+
+def test_plain_444_chroma_plane_matches_oracle():
+    """The frame step's 4:4:4 chroma call at 10 bits: the luma path on a
+    chroma plane's cell grid (15 x 23 cells, 2x3 SBs), against the oracle
+    window filters in the normative order; planes 1 and 2 stay zero."""
+    from test_pallas_lf import _ref_filter
+    rng = np.random.default_rng(444)
+    rc, cc, bd = 15, 23, 10
+    C, meta, thr, lfm, thr_t = _inputs_444_chroma(rng, rc, cc, bd)
+    want = [C[0].astype(np.int64), np.zeros((0, 0), np.int64),
+            np.zeros((0, 0), np.int64)]
+    none = (np.zeros((0, 0), np.int64), (np.zeros((0, 0), bool),) * 4,
+            (np.zeros((0, 0), bool),) * 4)
+    _ref_filter(want, meta, none, thr, bd)
+    got = _plain(C, lfm, thr_t, 1, rc, cc, bd)
+    assert (got[0] != C[0]).any()
+    assert np.array_equal(got[0], want[0])
+    assert not got[1:].any()
 
 
 def test_lf_off_is_identity_and_cpu_takes_plain():
@@ -122,9 +173,10 @@ def test_lf_off_is_identity_and_cpu_takes_plain():
 
 
 def test_hostshim_matches_pallas_pack_names():
+    """The pack names the port keeps in runtime/lfmeta (K,
+    pack_lfm_fields, pack_lf_thresholds) against the Pallas module's."""
     from cuda_vp9_tpu.ops.pallas import loopfilter as plf
-    assert sys.modules["cuda_vp9_tpu.ops.pallas.loopfilter"] is plf
-    assert plf is not _hostshim and _hostshim.K == plf.K
+    assert lfmeta.K == plf.K
     rng = np.random.default_rng(5)
     for mi_rows, mi_cols in ((8, 8), (15, 23), (37, 5)):
         F, my, muv, thr, lfm, thr_t = _inputs(rng, mi_rows, mi_cols)
@@ -150,9 +202,43 @@ def test_kernel_matches_plain_on_card(mi_rows, mi_cols):
     launches = LF.launches
     LF.lf_frame(Fk, *args, 1, **kw)
     LF.lf_frame_plain(Fp, *args, 1, **kw)
-    assert LF.launches == launches + 1
+    # one launch per superblock anti-diagonal
+    sb_rows, sb_cols = F.shape[1] // 64, F.shape[2] // 64
+    assert LF.launches == launches + sb_cols + 2 * (sb_rows - 1)
     assert torch.equal(Fk, Fp)
     assert not torch.equal(Fk.cpu(), torch.from_numpy(F))
     Fo = torch.from_numpy(F).to(dev)
     LF.lf_frame(Fo, *args, 0, **kw)
     assert torch.equal(Fo.cpu(), torch.from_numpy(F))
+
+
+def _kernel_vs_plain(F, lfm, thr_t, mi_rows, mi_cols, bd):
+    dev = torch.device("cuda")
+    args = (torch.from_numpy(lfm).to(dev), torch.from_numpy(thr_t).to(dev))
+    kw = dict(mi_rows=mi_rows, mi_cols=mi_cols, bd=bd)
+    Fk = torch.from_numpy(F).to(dev)
+    Fp = Fk.clone()
+    LF.lf_frame(Fk, *args, 1, **kw)
+    LF.lf_frame_plain(Fp, *args, 1, **kw)
+    assert torch.equal(Fk, Fp)
+    assert not torch.equal(Fk.cpu(), torch.from_numpy(F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [10, 12])
+@pytest.mark.parametrize("mi_rows,mi_cols", [(8, 8), (135, 240)])
+def test_kernel_matches_plain_on_card_high_bitdepth(mi_rows, mi_cols, bd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(bd * 7 + mi_cols)
+    F, _, _, _, lfm, thr_t = _inputs(rng, mi_rows, mi_cols, bd)
+    _kernel_vs_plain(F, lfm, thr_t, mi_rows, mi_cols, bd)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_444_chroma():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(4444)
+    C, _, _, lfm, thr_t = _inputs_444_chroma(rng, 15, 23, 10)
+    _kernel_vs_plain(C, lfm, thr_t, 15, 23, 10)

@@ -3,9 +3,12 @@ the JAX step's own calls of the shared reference, bit for bit.
 
 runtime/fused._residual_pass runs `T.inv_txfm2d` (32x32) and
 `T.inv_txfm2d_select` (4..16, per-unit tx_type) with xp=jnp and
-work_dtype=jnp.int16 at bd 8: the int16 WRAPLOW domain.  The same seeded
-coefficients go through both; full-range int16 coefficients drive the
-butterflies through their wrap points.  Tolerance 0: integer math."""
+work_dtype=jnp.int16 at bd 8 (the int16 WRAPLOW domain) and
+work_dtype=jnp.int32 at bd 10 and 12 (the emulated WRAPLOW domain in
+int32).  The same seeded coefficients go through both; full-range
+coefficients drive the butterflies through their wrap points (and, above
+8 bits, the int32 products through theirs).  Tolerance 0: integer
+math."""
 
 import numpy as np
 import pytest
@@ -58,3 +61,45 @@ def test_inv_txfm2d_select_matches_jax(tx_size, extreme):
     got = TT.inv_txfm2d_select(torch.from_numpy(c), tx_size,
                                torch.from_numpy(tt))
     assert np.array_equal(got.numpy(), want)
+
+
+def _coeffs32(rng, n_units, n, bd, extreme):
+    """int32 coefficients of a high-bit-depth stream: sparse and moderate,
+    or dense and up to the bd + 8-bit WRAPLOW range."""
+    lim = 1 << (bd + (7 if extreme else 4))
+    c = rng.integers(-lim, lim, (n_units, n * n))
+    if not extreme:
+        c = c * (rng.random(c.shape) < 0.25)
+    return c.astype(np.int32)
+
+
+@pytest.mark.parametrize("tx_size", [0, 1, 2, 3])
+@pytest.mark.parametrize("bd", [10, 12])
+def test_inv_txfm2d_int32_matches_jax(bd, tx_size):
+    rng = np.random.default_rng(400 + bd + tx_size)
+    n = 4 << tx_size
+    for extreme in (False, True):
+        for tt in ([0] if tx_size == 3 else [0, 1, 2, 3]):
+            c = _coeffs32(rng, 16, n, bd, extreme)
+            want = np.asarray(T.inv_txfm2d(jnp.asarray(c), tx_size, tt, bd,
+                                           xp=jnp, work_dtype=jnp.int32))
+            got = TT.inv_txfm2d(torch.from_numpy(c), tx_size, tt, bd)
+            assert got.dtype == torch.int32
+            assert np.array_equal(got.numpy(), want), \
+                f"bd={bd} tx_size={tx_size} tx_type={tt} extreme={extreme}"
+
+
+@pytest.mark.parametrize("tx_size", [0, 1, 2])
+@pytest.mark.parametrize("bd", [10, 12])
+def test_inv_txfm2d_select_int32_matches_jax(bd, tx_size):
+    rng = np.random.default_rng(500 + bd + tx_size)
+    n = 4 << tx_size
+    for extreme in (False, True):
+        c = _coeffs32(rng, 32, n, bd, extreme)
+        tt = rng.integers(0, 4, 32).astype(np.int32)
+        want = np.asarray(T.inv_txfm2d_select(
+            jnp.asarray(c), tx_size, jnp.asarray(tt), bd, xp=jnp,
+            work_dtype=jnp.int32))
+        got = TT.inv_txfm2d_select(torch.from_numpy(c), tx_size,
+                                   torch.from_numpy(tt), bd)
+        assert np.array_equal(got.numpy(), want), f"extreme={extreme}"
