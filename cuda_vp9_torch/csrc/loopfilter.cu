@@ -1,44 +1,87 @@
-// VP9 deblocking loop filter for one frame (a luma plane and two 4:2:0
-// chroma planes), hand-written for Hopper.
+// VP9 deblocking loop filter, hand-written for Hopper: the whole-frame
+// filter (K1, `vp9_lf_frame`) and the 4:2:2 chroma filter (K7,
+// `vp9_lf_plane_tiles`), each one persistent launch per call.
 //
-// Replaces cuda_vp9_tpu/ops/pallas/loopfilter.py `lf_frame` (with
+// K1 replaces cuda_vp9_tpu/ops/pallas/loopfilter.py `lf_frame` (with
 // `_make_kernel`, `_run_chains` and `_edge_chain`): the same int32 filter
 // math (vpx_dsp/loopfilter.c filter4/8/16 and the interior +4 edge, and
 // their highbd forms: thresholds, flat tests and clamps scale by bd - 8
 // for bd 10 and 12), the same packed metadata (lfm [n_sbs_pad, 2, 128]
 // int16, bits | level << 4 per cell; thr [64, 4] int16 level -> (-,
-// mblim, lim, hev)), applied in the normative superblock order.  The
-// frame step also calls it on a 4:4:4 chroma plane, as plane 0 of a
-// canvas on the chroma cell grid with zero chroma fields, and on the luma
-// of a 4:2:2 frame (zero chroma fields), as the JAX step does.
+// mblim, lim, hev)), applied in the normative superblock order, on a luma
+// plane and two 4:2:0 chroma planes.  The frame step also calls it on a
+// 4:4:4 chroma plane, as plane 0 of a canvas on the chroma cell grid with
+// zero chroma fields, and on the luma of a 4:2:2 frame (zero chroma
+// fields), as the JAX step does.
 //
-// Order.  SB (r, c) needs (r, c-1) and (r-1, c+1) finished, so the host
-// loop launches one grid per anti-diagonal s = c + 2r with one block per
-// SB of that wave; SBs on one wave touch disjoint pixels.  Inside an SB
-// all vertical chains run left to right, then all horizontal chains top
-// to bottom.  In the vertical pass every pixel row is independent, in the
-// horizontal pass every pixel column, so a block has 128 threads: 64 take
-// the luma rows (columns), 2 x 32 the U and V rows (columns), and each
-// thread walks its 8 (luma) or 4 (chroma) chains in order, with one
-// __syncthreads() between the passes.
+// K7 replaces the XLA function cuda_vp9_tpu/ops/device/lf_wave.py
+// `lf_plane_tiles` (`_tile_pass_v`, `_tile_pass_h`, `_filter_window`): the
+// two chroma planes of a 4:2:2 frame in tiles of 64 rows and 32 columns
+// (the chroma of one luma superblock), each tile's vertical windows left
+// to right, then its horizontal windows top to bottom, with five int16
+// per-cell maps (edge bits as in lfm, mblim, lim, hev; the thresholds are
+// scaled by bd - 8 here).
 //
-// What bounds it on this card: the serial wave depth (sb_cols + 2 sb_rows
-// - 2 launches per frame, 62 at 1920x1088) and the launch count, not
-// bytes: a 1080p frame is 12 MB of int32 pixels, read and written a few
-// times in L2-resident windows.  Measured at 1920x1088: 1.80 ms a frame
-// (NVIDIA H100 80GB HBM3, 700 W power limit), against 5.6 s for the plain
-// torch version.  Later work: one persistent kernel with per-row progress
-// flags, tiles in shared memory, CUDA graphs.
+// Order.  Both walk a grid of tiles in which tile (r, c) needs (r, c-1)
+// and (r-1, c+1) finished: a 64x64 luma SB with its two 32x32 chroma
+// tiles for K1, a 64x32 tile of each chroma plane for K7.  A tile's
+// footprint is the tile and the 8-pixel strips to its left and above it,
+// with no corner.  In the vertical pass every pixel row is independent,
+// in the horizontal pass every pixel column, so a thread owns a row
+// (column) and walks its chains in order: for K1, 64 threads take the
+// luma rows (columns) and 2 x 32 the U and V ones, 8 and 4 chains each;
+// for K7, 2 x 64 threads the rows (4 chains each), then 2 x 32 the
+// columns (8 chains each).
+//
+// The two passes have different neighbours.  The vertical pass of (r, c)
+// reads and writes only the tile's own rows and its left strip, which
+// row r-1 never touches, so it waits only for (r, c-1).  The horizontal
+// pass reads the top strip, which row r-1 writes up to its horizontal
+// pass of (r-1, c) and its vertical pass of (r-1, c+1) (7 pixels of its
+// left strip), and writes it.  So a row publishes its progress in half
+// steps, and the critical path is cols + rows - 1 tile steps (46 at
+// 1920x1088), where whole-tile hand-offs would make it cols + 2 (rows - 1)
+// (62).  One condition: the vertical pass of (r, c) writes its left strip
+// back before it publishes, because the horizontal pass of (r+1, c-1)
+// changes those pixels next; the horizontal pass of (r, c) then writes
+// back only the tile's own columns.
+//
+// Schedule.  One launch per call, 128 threads a block.  A block claims
+// the next tile row with an atomic ticket and walks it left to right;
+// before the horizontal pass of tile (r, c) it waits until row r-1 has
+// run tile c and the vertical pass of tile c + 1.  It only ever waits on
+// a row claimed before its own, by a block that is already running, so
+// the walk cannot deadlock, whatever order the blocks become resident
+// in.  Passes in flight at the same time touch disjoint pixels.  Each
+// pass stages what it reads in shared memory (a pixel outside its plane
+// reads 0: the Pallas kernel's 8-pixel zero apron), runs its chains
+// there, and writes back the pixels a chain may have changed (window
+// positions 1..14) that lie in the plane.  The ticket and the progress
+// flags live in an int32 workspace [1 + rows] that the wrapper allocates
+// and the entry point zeroes on the stream before the launch.
+//
+// What bounds it on this card: the serial critical path of tile steps,
+// each two passes of dependent chains in shared memory with a staged
+// load and a store around each; not bytes (a 1080p frame is 12 MB of
+// int32 pixels, 7.6 us at the memory rate).  Measured by chip_smoke.py on
+// an NVIDIA H100 80GB HBM3 at its 700 W power limit: K1 0.741 ms per
+// 1920x1088 frame at bd 10, one SB step 13.4 us (so the 46-step path is
+// 0.615 ms); K7 0.579 ms for two 1088x960 planes, one tile step 9.6 us.
 //
 // Frame layout: F is int32 [3, ha, wa] contiguous, ha and wa multiples of
-// 64; U and V occupy the top-left [ha/2, wa/2] of their planes.  A window
-// pixel outside its plane reads as 0 and is never written (the Pallas
-// kernel's 8-pixel zero apron); a cell whose bits are 0 reads nothing.
+// 64.  For K1, U and V occupy the top-left [ha/2, wa/2] of their planes;
+// for K7, the left [ha, wa/2].  A cell whose bits are 0 reads nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 128;
+constexpr int YS = 73;  // luma tile row stride: 72 + 1, so the rows of a
+                        // vertical pass fall on distinct banks
+constexpr int CS = 41;  // chroma tile row stride: 40 + 1
+constexpr int kMaxSpins = 1 << 24;  // polls of a progress flag before a trap
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -138,100 +181,395 @@ __device__ void edge_chain(int* w, int bits, int mb, int lm, int hv,
   for (int k = 0; k < 16; ++k) w[k] = o[k];
 }
 
-// One block per SB of wave s; see the header for the thread layout.
-__global__ void __launch_bounds__(128)
-lf_wave_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
-               const int16_t* __restrict__ thr, int ha, int wa, int sb_cols,
-               int s, int r_lo, int bd) {
-  const int r = r_lo + blockIdx.x;
-  const int c = s - 2 * r;
-  const int t = threadIdx.x;
-  const bool luma = t < 64;
-  const int plane = luma ? 0 : 1 + ((t - 64) >> 5);
-  const int lane = luma ? t : ((t - 64) & 31);
-  const int nch = luma ? 8 : 4;
-  const int sz = luma ? 64 : 32;
-  const int ph = luma ? ha : ha / 2;
-  const int pw = luma ? wa : wa / 2;
-  const int lbase = luma ? 0 : 64;
-  int32_t* P = F + (size_t)plane * ha * wa;
-  const int16_t* L = lfm + (size_t)(r * sb_cols + c) * 256;
-  const int sh = bd - 8;
-  int w[16];
+// ------------------------------------------------------------ progress
 
-  // vertical chains: this thread's pixel row, chains left to right
-  {
-    const int y = r * sz + lane;
-    int32_t* row = P + (size_t)y * wa;
-    for (int i = 0; i < nch; ++i) {
-      const int v = L[lbase + i * 8 + (lane >> 3)];
-      const int bits = v & 15;
-      if (!bits) continue;
-      const int lvl = v >> 4;
-      const int x0 = c * sz + i * 8 - 8;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int x = x0 + k;
-        w[k] = (x >= 0 && x < pw) ? row[x] : 0;
+// Device-scope release store of a progress flag.  The block's pixel
+// stores come before it through the __syncthreads() that precedes the
+// call, and a release is cumulative: a block that reads the flag with
+// ld_acquire sees those pixels.
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Device-scope acquire load of a progress flag: no later load of this
+// thread (nor, through the __syncthreads() after the wait, of its block)
+// moves before it.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The row walker of the header.  ws[0] is the ticket, ws[1 + r] the
+// progress of row r in half steps: 2 c + 1 once tile (r, c) has run its
+// vertical pass, 2 c + 2 once it has run both.  tile.vertical(r, c) and
+// tile.horizontal(r, c) run one pass of one tile with the whole block and
+// may use __syncthreads().
+template <class Tile>
+__device__ void walk_rows(int* ws, int rows, int cols, const Tile& tile) {
+  __shared__ int s_row;
+  int* const progress = ws + 1;
+  for (;;) {
+    __syncthreads();  // every thread has read the last round's s_row
+    if (threadIdx.x == 0) s_row = atomicAdd(ws, 1);
+    __syncthreads();
+    const int r = s_row;
+    if (r >= rows) return;
+    for (int c = 0; c < cols; ++c) {
+      tile.vertical(r, c);
+      // every thread's stores of the left strip come before the release
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        st_release(progress + r, 2 * c + 1);
+        if (r > 0) {
+          // the top strip is final once row r-1 has run tile c and the
+          // vertical pass of tile c + 1
+          const int need = c + 1 < cols ? 2 * c + 3 : 2 * cols;
+          // a wait lasts a few tile steps; one of seconds is a fault (a
+          // workspace that was not zeroed), and the launch fails rather
+          // than hangs
+          for (int spins = 0; ld_acquire(progress + r - 1) < need; ++spins) {
+            if (spins == kMaxSpins) __trap();
+            __nanosleep(32);
+          }
+        }
       }
-      edge_chain(w, bits, thr[lvl * 4 + 1] << sh, thr[lvl * 4 + 2] << sh,
-                 thr[lvl * 4 + 3] << sh, bd);
-#pragma unroll
-      for (int k = 1; k < 15; ++k) {
-        const int x = x0 + k;
-        if (x >= 0 && x < pw) row[x] = w[k];
-      }
-    }
-  }
-  __syncthreads();
-  // horizontal chains: this thread's pixel column, chains top to bottom
-  {
-    const int x = c * sz + lane;
-    for (int j = 0; j < nch; ++j) {
-      const int v = L[128 + lbase + j * 8 + (lane >> 3)];
-      const int bits = v & 15;
-      if (!bits) continue;
-      const int lvl = v >> 4;
-      const int y0 = r * sz + j * 8 - 8;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int y = y0 + k;
-        w[k] = (y >= 0 && y < ph) ? P[(size_t)y * wa + x] : 0;
-      }
-      edge_chain(w, bits, thr[lvl * 4 + 1] << sh, thr[lvl * 4 + 2] << sh,
-                 thr[lvl * 4 + 3] << sh, bd);
-#pragma unroll
-      for (int k = 1; k < 15; ++k) {
-        const int y = y0 + k;
-        if (y >= 0 && y < ph) P[(size_t)y * wa + x] = w[k];
-      }
+      // the other threads read row r-1's pixels only after the acquire
+      __syncthreads();
+      tile.horizontal(r, c);
+      // every thread's pixel stores come before the release
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(progress + r, 2 * c + 2);
     }
   }
 }
 
+// ------------------------------------------------------------ tiles
+
+struct Plane {  // a plane of F: first pixel, row stride, height, width
+  int32_t* p;
+  int rs, h, w;
+};
+
+// The TH x TW window at (y, x) of a plane, staged through registers with
+// the whole block: load() issues every global load of this thread before
+// store() writes any of them to shared memory, so a pass's loads are in
+// flight together (each pass is on the critical path; its latency is
+// what counts).  A pixel outside the plane reads 0.  __ldcg reads L2, so
+// a pixel that another block wrote is never served from a stale L1 line.
+template <int TH, int TW>
+struct Staged {
+  static constexpr int N = (TH * TW + kThreads - 1) / kThreads;
+  int v[N];
+
+  __device__ __forceinline__ void load(const Plane& P, int y0, int x0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int y = y0 + i / TW, x = x0 + i % TW;
+      v[j] = (i < TH * TW && y >= 0 && y < P.h && x >= 0 && x < P.w)
+                 ? __ldcg(P.p + static_cast<size_t>(y) * P.rs + x)
+                 : 0;
+    }
+  }
+
+  __device__ __forceinline__ void store(int* s, int ss) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      if (i < TH * TW) s[(i / TW) * ss + i % TW] = v[j];
+    }
+  }
+};
+
+// Writes the TH x TW window of s (row stride ss) back to (y, x) of a
+// plane, where it lies in the plane.
+template <int TH, int TW>
+__device__ void unstage(const int* s, int ss, const Plane& P, int y0,
+                        int x0) {
+  for (int i = threadIdx.x; i < TH * TW; i += kThreads) {
+    const int y = y0 + i / TW, x = x0 + i % TW;
+    if (y >= 0 && y < P.h && x >= 0 && x < P.w)
+      __stcg(P.p + static_cast<size_t>(y) * P.rs + x,
+             s[(i / TW) * ss + i % TW]);
+  }
+}
+
+// One lane's n chains in order on a staged tile: window k is the 16
+// pixels base[(8 k + m) es], m = 0..15.  meta(k, bits, mb, lm, hv) gives
+// chain k's edge bits and bd-scaled thresholds from shared memory and
+// returns false for no edge.  Window k + 1 starts at position 8 of window
+// k, so that half stays in registers: a chain loads 8 pixels and stores
+// the 8 (positions 0..7) that no later chain of the lane changes.
+template <class Meta>
+__device__ void run_lane(int* base, int es, int n, int bd, const Meta& meta) {
+  int w[16];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) w[8 + m] = base[m * es];
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    int* p = base + 8 * k * es;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      w[m] = w[8 + m];
+      w[8 + m] = p[(8 + m) * es];
+    }
+    int bits, mb, lm, hv;
+    if (meta(k, bits, mb, lm, hv)) edge_chain(w, bits, mb, lm, hv, bd);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) p[m * es] = w[m];
+  }
+#pragma unroll
+  for (int m = 8; m < 15; ++m) base[(8 * (n - 1) + m) * es] = w[m];
+}
+
+// K1's metadata: chain k's cell at cell[8 k] of an SB's staged lfm
+// (bits | level << 4); thr [64, 4], already bd-scaled.
+struct LfmMeta {
+  const int* cell;
+  const int* thr;
+  __device__ bool operator()(int k, int& bits, int& mb, int& lm,
+                             int& hv) const {
+    const int v = cell[8 * k];
+    bits = v & 15;
+    if (!bits) return false;
+    const int* t = thr + (v >> 4) * 4;
+    mb = t[1];
+    lm = t[2];
+    hv = t[3];
+    return true;
+  }
+};
+
+// K7's metadata: chain k's cell c0 + k step of a tile's staged maps
+// (32 cells each, 4 to a row).
+struct MapMeta {
+  const int *bits, *mb, *lm, *hv;
+  int c0, step, sh;
+  __device__ bool operator()(int k, int& b, int& mbv, int& lmv,
+                             int& hvv) const {
+    const int i = c0 + k * step;
+    b = bits[i];
+    if (!b) return false;
+    mbv = mb[i] << sh;
+    lmv = lm[i] << sh;
+    hvv = hv[i] << sh;
+    return true;
+  }
+};
+
+// The two passes of a tile, on a shared tile of TH x TW pixels at (y0,
+// x0) = 8 pixels up and left of the tile (row stride ss): the vertical
+// pass stages rows 8.. (the tile and its left strip), runs, and writes
+// back the left strip, which the next row's horizontal pass of the tile
+// to the left changes next; the horizontal pass stages the top strip
+// (rows 0..7 right of the corner), runs, and writes back the rest.
+
+// K1: SB (r, c) of the luma plane and both 4:2:0 chroma planes.
+struct FrameTile {
+  Plane y, u, v;
+  const int16_t* lfm;
+  const int* thr;
+  int sb_cols, bd;
+  int *sy, *su, *sv;  // shared: 72 x YS luma, 40 x CS per chroma plane
+  int* sl;            // shared: the SB's lfm, 256 entries
+
+  // whether this thread's lfm entries hold an edge of its plane kind; a
+  // plane with no edge in the SB is not written back (the chroma of a
+  // 4:4:4 or 4:2:2 frame's call: zero chroma fields)
+  __device__ int edges(bool chroma) const {
+    const int t = threadIdx.x;
+    return (chroma ? t >= 64 && t < 96 : t < 64) &&
+           ((sl[t] | sl[128 + t]) & 15);
+  }
+
+  __device__ void vertical(int r, int c) const {
+    const int t = threadIdx.x;
+    const int16_t* L = lfm + static_cast<size_t>(r * sb_cols + c) * 256;
+    Staged<64, 72> a;
+    Staged<32, 40> b, d;
+    a.load(y, r * 64, c * 64 - 8);
+    b.load(u, r * 32, c * 32 - 8);
+    d.load(v, r * 32, c * 32 - 8);
+    const int e0 = __ldg(L + t), e1 = __ldg(L + 128 + t);
+    a.store(sy + 8 * YS, YS);
+    b.store(su + 8 * CS, CS);
+    d.store(sv + 8 * CS, CS);
+    sl[t] = e0;
+    sl[128 + t] = e1;
+    __syncthreads();
+    // the lane's pixel row, windows at columns 8 k
+    const bool luma = t < 64;
+    const int lane = luma ? t : (t - 64) & 31;
+    const int ss = luma ? YS : CS;
+    run_lane((luma ? sy : (t < 96 ? su : sv)) + (8 + lane) * ss, 1,
+             luma ? 8 : 4, bd,
+             LfmMeta{sl + (luma ? 0 : 64) + (lane >> 3), thr});
+    const bool any_y = __syncthreads_or(edges(false));
+    const bool any_c = __syncthreads_or(edges(true));
+    if (any_y) unstage<64, 7>(sy + 8 * YS + 1, YS, y, r * 64, c * 64 - 7);
+    if (any_c) {
+      unstage<32, 7>(su + 8 * CS + 1, CS, u, r * 32, c * 32 - 7);
+      unstage<32, 7>(sv + 8 * CS + 1, CS, v, r * 32, c * 32 - 7);
+    }
+  }
+
+  __device__ void horizontal(int r, int c) const {
+    const int t = threadIdx.x;
+    Staged<8, 64> a;
+    Staged<8, 32> b, d;
+    a.load(y, r * 64 - 8, c * 64);
+    b.load(u, r * 32 - 8, c * 32);
+    d.load(v, r * 32 - 8, c * 32);
+    a.store(sy + 8, YS);
+    b.store(su + 8, CS);
+    d.store(sv + 8, CS);
+    __syncthreads();
+    // the lane's pixel column, windows at rows 8 k
+    const bool luma = t < 64;
+    const int lane = luma ? t : (t - 64) & 31;
+    run_lane((luma ? sy : (t < 96 ? su : sv)) + 8 + lane, luma ? YS : CS,
+             luma ? 8 : 4, bd,
+             LfmMeta{sl + 128 + (luma ? 0 : 64) + (lane >> 3), thr});
+    const bool any_y = __syncthreads_or(edges(false));
+    const bool any_c = __syncthreads_or(edges(true));
+    if (any_y) unstage<71, 64>(sy + YS + 8, YS, y, r * 64 - 7, c * 64);
+    if (any_c) {
+      unstage<39, 32>(su + CS + 8, CS, u, r * 32 - 7, c * 32);
+      unstage<39, 32>(sv + CS + 8, CS, v, r * 32 - 7, c * 32);
+    }
+  }
+};
+
+// K7: tile (r, c), 64 rows by 32 columns, of both 4:2:2 chroma planes.
+struct ChromaTile {
+  Plane u, v;
+  const int16_t* maps[5];  // vbits, hbits, mb, lm, hv: [h / 8, mcols]
+  int mcols, sh, bd;
+  int *su, *sv;  // shared: 72 x CS per plane
+  int* sm;       // shared: the tile's 8 x 4 cells of the five maps
+
+  __device__ void vertical(int r, int c) const {
+    const int t = threadIdx.x;
+    Staged<64, 40> a, b;
+    a.load(u, r * 64, c * 32 - 8);
+    b.load(v, r * 64, c * 32 - 8);
+    int m[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // entry i: map i / 32, cell i % 32
+      const int i = t + j * kThreads;
+      const int cell = i & 31;
+      m[j] = i < 160 ? __ldg(maps[i >> 5] + (r * 8 + (cell >> 2)) * mcols +
+                             c * 4 + (cell & 3))
+                     : 0;
+    }
+    a.store(su + 8 * CS, CS);
+    b.store(sv + 8 * CS, CS);
+    sm[t] = m[0];
+    if (t < 32) sm[128 + t] = m[1];
+    __syncthreads();
+    // 64 row lanes per plane, windows at columns 8 k, k < 4
+    const int y = t & 63;
+    run_lane((t < 64 ? su : sv) + (8 + y) * CS, 1, 4, bd,
+             MapMeta{sm, sm + 64, sm + 96, sm + 128, (y >> 3) * 4, 1, sh});
+    __syncthreads();
+    unstage<64, 7>(su + 8 * CS + 1, CS, u, r * 64, c * 32 - 7);
+    unstage<64, 7>(sv + 8 * CS + 1, CS, v, r * 64, c * 32 - 7);
+  }
+
+  __device__ void horizontal(int r, int c) const {
+    const int t = threadIdx.x;
+    Staged<8, 32> a, b;
+    a.load(u, r * 64 - 8, c * 32);
+    b.load(v, r * 64 - 8, c * 32);
+    a.store(su + 8, CS);
+    b.store(sv + 8, CS);
+    __syncthreads();
+    if (t < 64) {  // 32 column lanes per plane, windows at rows 8 k, k < 8
+      const int x = t & 31;
+      run_lane((t < 32 ? su : sv) + 8 + x, CS, 8, bd,
+               MapMeta{sm + 32, sm + 64, sm + 96, sm + 128, x >> 3, 4, sh});
+    }
+    __syncthreads();
+    unstage<71, 32>(su + CS + 8, CS, u, r * 64 - 7, c * 32);
+    unstage<71, 32>(sv + CS + 8, CS, v, r * 64 - 7, c * 32);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+lf_frame_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
+                const int16_t* __restrict__ thr, int* ws, int ha, int wa,
+                int bd) {
+  __shared__ int sy[72 * YS];
+  __shared__ int su[40 * CS];
+  __shared__ int sv[40 * CS];
+  __shared__ int sl[256];
+  __shared__ int sthr[256];
+  for (int i = threadIdx.x; i < 256; i += kThreads)
+    sthr[i] = thr[i] << (bd - 8);
+  const size_t n = static_cast<size_t>(ha) * wa;
+  const FrameTile tile{{F, wa, ha, wa},
+                       {F + n, wa, ha / 2, wa / 2},
+                       {F + 2 * n, wa, ha / 2, wa / 2},
+                       lfm, sthr, wa / 64, bd, sy, su, sv, sl};
+  walk_rows(ws, ha / 64, wa / 64, tile);
+}
+
+__global__ void __launch_bounds__(kThreads)
+lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
+              const int16_t* __restrict__ hb, const int16_t* __restrict__ mb,
+              const int16_t* __restrict__ lm, const int16_t* __restrict__ hv,
+              int* ws, int ha, int wa, int bd) {
+  __shared__ int su[72 * CS];
+  __shared__ int sv[72 * CS];
+  __shared__ int sm[160];
+  const size_t n = static_cast<size_t>(ha) * wa;
+  const int wc = wa / 2;
+  const ChromaTile tile{{F + n, wa, ha, wc}, {F + 2 * n, wa, ha, wc},
+                        {vb, hb, mb, lm, hv}, wc / 8, bd - 8, bd, su, sv, sm};
+  walk_rows(ws, ha / 64, wc / 32, tile);
+}
+
 }  // namespace
 
-// Filters F in place: one launch per SB anti-diagonal on `stream`.  Sets
-// *launched to the number of kernel launches made.  Returns the first
-// CUDA error (cudaGetLastError), 0 on success.
+// Filters F [3, ha, wa] in place: zeroes the workspace ws (int32, at
+// least 1 + ha / 64 entries) and launches the persistent kernel on
+// `stream`, one block per SB row.  Sets *launched to the number of
+// kernel launches made (1).  Returns the first CUDA error, 0 on success.
 extern "C" int vp9_lf_frame(void* F, const void* lfm, const void* thr,
-                            int ha, int wa, int bd, void* stream,
+                            void* ws, int ha, int wa, int bd, void* stream,
                             int* launched) {
   *launched = 0;
-  const int sb_rows = ha / 64, sb_cols = wa / 64;
-  const int n_waves = sb_cols + 2 * (sb_rows - 1);
+  const int rows = ha / 64;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int s = 0; s < n_waves; ++s) {
-    const int lo = s - sb_cols + 2;   // c = s - 2r <= sb_cols - 1
-    const int r_lo = lo > 0 ? lo / 2 : 0;
-    const int r_hi = s / 2 < sb_rows - 1 ? s / 2 : sb_rows - 1;
-    if (r_hi < r_lo) continue;
-    lf_wave_kernel<<<r_hi - r_lo + 1, 128, 0, st>>>(
-        static_cast<int32_t*>(F), static_cast<const int16_t*>(lfm),
-        static_cast<const int16_t*>(thr), ha, wa, sb_cols, s, r_lo, bd);
-    ++*launched;
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = cudaMemsetAsync(ws, 0, (1 + rows) * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lf_frame_kernel<<<rows, kThreads, 0, st>>>(
+      static_cast<int32_t*>(F), static_cast<const int16_t*>(lfm),
+      static_cast<const int16_t*>(thr), static_cast<int*>(ws), ha, wa, bd);
+  ++*launched;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Filters the chroma planes of a 4:2:2 frame F [3, ha, wa] in place (the
+// left [ha, wa / 2] of planes 1 and 2); vb, hb, mb, lm, hv are int16
+// [ha / 8, wa / 16] each.  Workspace, stream and result as vp9_lf_frame.
+extern "C" int vp9_lf_plane_tiles(void* F, const void* vb, const void* hb,
+                                  const void* mb, const void* lm,
+                                  const void* hv, void* ws, int ha, int wa,
+                                  int bd, void* stream, int* launched) {
+  *launched = 0;
+  const int rows = ha / 64;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(ws, 0, (1 + rows) * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lf_422_kernel<<<rows, kThreads, 0, st>>>(
+      static_cast<int32_t*>(F), static_cast<const int16_t*>(vb),
+      static_cast<const int16_t*>(hb), static_cast<const int16_t*>(mb),
+      static_cast<const int16_t*>(lm), static_cast<const int16_t*>(hv),
+      static_cast<int*>(ws), ha, wa, bd);
+  ++*launched;
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,15 +3,17 @@
 `lf_frame` is the counterpart of `cuda_vp9_tpu/ops/pallas/loopfilter.py`
 `lf_frame`, in place on an int32 [3, ha, wa] frame (a luma plane and two
 4:2:0 chroma planes, bit depth 8, 10 or 12).  On a CUDA tensor it
-launches the kernel of `csrc/loopfilter.cu` (one launch per superblock
-anti-diagonal) or raises; on a CPU tensor it runs `lf_frame_plain`, the
-same math in torch ops.  Both keep the Pallas kernel's order: SB (r, c)
-after (r, c-1) and (r-1, c+1); per SB all vertical edge chains, then all
-horizontal ones; per chain the main edge and the interior +4 edge.
+launches the kernel of `csrc/loopfilter.cu` or raises; on a CPU tensor it
+runs `lf_frame_plain`, the same math in torch ops.  Both keep the Pallas
+kernel's order: SB (r, c) after (r, c-1) and (r-1, c+1); per SB all
+vertical edge chains, then all horizontal ones; per chain the main edge
+and the interior +4 edge.  The kernel is one persistent launch per call:
+its blocks walk SB rows, each SB staged in shared memory, and wait on
+per-row progress flags in a small workspace this wrapper allocates.
 
-`launches` counts the kernel launches (one per anti-diagonal, as the C
-entry point reports them) and `plain_calls` the calls of the plain
-version.
+`launches` counts the kernel launches (one per call with a filter level,
+as the C entry point reports them) and `plain_calls` the calls of the
+plain version.
 """
 
 from __future__ import annotations
@@ -197,6 +199,15 @@ def _check(F, lfm, thr, mi_rows, mi_cols):
         raise ValueError("F, lfm and thr must be on one device")
 
 
+def workspace(F):
+    """The kernels' int32 scratch for a frame F [3, ha, wa]: a row ticket
+    and one progress flag per SB row.  The C entry point zeroes it on the
+    stream before its launch; the caching allocator keeps it with the
+    stream, so the next call may get the same block back."""
+    return torch.empty(1 + F.shape[1] // 64, dtype=torch.int32,
+                       device=F.device)
+
+
 def _lib():
     """The bound C entry point; builds csrc/loopfilter.cu at first use."""
     from ._build import load
@@ -205,9 +216,8 @@ def _lib():
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     return fn
 
 
@@ -230,10 +240,11 @@ def lf_frame(F, lfm, thr, lf_on: int, *, mi_rows: int, mi_cols: int,
     global launches
     fn = _lib()
     n = ctypes.c_int(0)
+    ws = workspace(F)
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = fn(F.data_ptr(), lfm.data_ptr(), thr.data_ptr(), F.shape[1],
-                 F.shape[2], bd, stream, ctypes.byref(n))
+        err = fn(F.data_ptr(), lfm.data_ptr(), thr.data_ptr(), ws.data_ptr(),
+                 F.shape[1], F.shape[2], bd, stream, ctypes.byref(n))
     launches += n.value
     if err:
         raise RuntimeError(f"vp9_lf_frame: CUDA error {err}")

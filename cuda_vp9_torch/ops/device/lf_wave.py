@@ -5,8 +5,7 @@ Counterpart of `cuda_vp9_tpu/ops/device/lf_wave.py` (`lf_plane_tiles`,
 superblock raster order: all vertical edges of the SB, then its
 horizontal edges.  In a 4:2:2 chroma plane each luma SB covers a tile 32
 pixels wide and 64 tall, so neighbouring tiles' V and H filters
-interleave at 32-pixel columns, an order that the 64-pixel SB kernel
-(`ops/cuda/loopfilter.py`) cannot express.  This module replays it: one
+interleave at 32-pixel columns.  This module replays that order: one
 tile at a time, in raster order, each tile's vertical windows left to
 right and then its horizontal windows top to bottom.
 
@@ -16,7 +15,12 @@ Each window is the loop filter's edge chain (`_edge_chain` of
 and thresholds are per-cell maps packed by `runtime/pack._pack_lf`
 (bit 0 = 16-wide, 1 = 8-wide, 2 = 4-wide, 3 = interior 4x4).
 
-A hand-written kernel for this pass is ROADMAP queue 2 item K7.
+This is the plain twin of the hand-written kernel (`ops/cuda/lf422.py`,
+`vp9_lf_plane_tiles` of `csrc/loopfilter.cu`): tile (r, c) needs only
+(r, c-1) and (r-1, c+1), as a superblock of the whole-frame filter does,
+so the kernel walks the tiles on that filter's row walker, one
+persistent launch per frame.  The frame step runs this version only on
+the CPU; the tests hold the kernel against it.
 """
 
 from __future__ import annotations

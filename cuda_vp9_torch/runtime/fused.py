@@ -20,7 +20,7 @@ Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
 transforms run in the int32 WRAPLOW domain; the ring is int16.  The loop
 filter follows the chroma format: 4:2:0 is one `lf_frame` call; 4:4:4
 filters each chroma plane through the kernel's luma path on the chroma
-cell grid; 4:2:2 filters the chroma planes with `lf_plane_tiles`, in the
+cell grid; 4:2:2 filters the chroma planes with `lf_chroma_422`, in the
 order of the luma superblocks (fused.py:638-682).
 
 The pool canvas [pha, pwa] may exceed the frame canvas [ha, wa] when
@@ -50,9 +50,9 @@ from torch.profiler import record_function
 
 from .. import models as M
 from ..ops import transforms as T
+from ..ops.cuda.lf422 import lf_chroma_422
 from ..ops.cuda.loopfilter import lf_frame
 from ..ops.device import stages
-from ..ops.device.lf_wave import lf_plane_tiles
 from . import pack
 
 I32 = torch.int32
@@ -330,13 +330,12 @@ def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
     ha, wa = F.shape[1:]
     ssx, ssy = ss
     hcc, wcc = ha >> ssy, wa >> ssx
-    # the lfm of a 4:4:4 or 4:2:2 frame ships zeroed chroma fields, so the
-    # first call leaves chroma alone; the chroma planes are filtered from
-    # their copies, as JAX does
-    Fc = (F[1].clone(), F[2].clone()) if ss != (1, 1) and lf_on else None
+    # the lfm of a 4:4:4 or 4:2:2 frame ships zeroed chroma fields, so
+    # this call leaves the chroma planes as they are; they are filtered
+    # after it
     lf_frame(F, seg("lfm", dtype=torch.int16), thr, lf_on, mi_rows=mi_rows,
              mi_cols=mi_cols, bd=bd)
-    if Fc is None:
+    if ss == (1, 1) or not lf_on:
         return
     if ss == (0, 0):
         # 4:4:4: each chroma plane through the kernel's luma path on the
@@ -346,16 +345,13 @@ def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
         lfm_c = seg("lfm_c", dtype=torch.int16)
         for p in (1, 2):
             Cp = torch.zeros((3, hac, wac), dtype=I32, device=F.device)
-            Cp[0, :hcc, :wcc] = Fc[p - 1][:hcc, :wcc]
+            Cp[0, :hcc, :wcc] = F[p, :hcc, :wcc]
             lf_frame(Cp, lfm_c, thr, lf_on, mi_rows=rc, mi_cols=cc, bd=bd)
             F[p, :hcc, :wcc] = Cp[0, :hcc, :wcc]
     else:
-        # 4:2:2: 32-px-wide chroma tiles in luma-SB raster order
-        lfw = [seg(nm) for nm in ("lfw_v", "lfw_h", "lfw_mb", "lfw_lm",
-                                  "lfw_hv")]
-        for p in (1, 2):
-            F[p, :, :wcc] = lf_plane_tiles(Fc[p - 1][:, :wcc], *lfw, lf_on,
-                                           gx=8 >> ssx, gy=8 >> ssy, bd=bd)
+        # 4:2:2: both chroma planes in place, 64x32 tiles in luma-SB order
+        lf_chroma_422(F, *(seg(nm, dtype=torch.int16) for nm in (
+            "lfw_v", "lfw_h", "lfw_mb", "lfw_lm", "lfw_hv")), lf_on, bd=bd)
 
 
 def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,

@@ -93,7 +93,7 @@ def _port(P, vb, hb, mb, lm, hv, bd, lf_on=1):
     return TW.lf_plane_tiles(*t, lf_on, gx=GX, gy=GY, bd=bd).numpy()
 
 
-@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bd", [8, 10, 12])
 def test_lf_plane_tiles_matches_oracle_order(bd):
     rng = np.random.default_rng(4220 + bd)
     ins = _plane_inputs(rng, 128, 96, bd)       # 2 x 3 tiles

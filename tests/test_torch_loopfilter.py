@@ -10,8 +10,9 @@
   * the port's `runtime/lfmeta` pack names against the Pallas module's,
     byte for byte;
   * the CUDA kernel against `lf_frame_plain` on the card at bit depths 8,
-    10 and 12 and on the 4:4:4 chroma canvas (marked `cuda`; skips
-    without a device).  This file imports JAX only inside the tests that
+    10 and 12 and on the 4:4:4 chroma canvas, one launch per call, ten
+    runs of one input and two calls that reuse one workspace (marked
+    `cuda`; skips without a device).  This file imports JAX only inside the tests that
     compare with it, and the oracle (`cuda_vp9_tpu.ops.ref`, NumPy) only
     where it is needed, so on a machine without JAX the kernel tests run
     with `python -m pytest --noconftest -m cuda
@@ -202,9 +203,8 @@ def test_kernel_matches_plain_on_card(mi_rows, mi_cols):
     launches = LF.launches
     LF.lf_frame(Fk, *args, 1, **kw)
     LF.lf_frame_plain(Fp, *args, 1, **kw)
-    # one launch per superblock anti-diagonal
-    sb_rows, sb_cols = F.shape[1] // 64, F.shape[2] // 64
-    assert LF.launches == launches + sb_cols + 2 * (sb_rows - 1)
+    # one persistent launch per call
+    assert LF.launches == launches + 1
     assert torch.equal(Fk, Fp)
     assert not torch.equal(Fk.cpu(), torch.from_numpy(F))
     Fo = torch.from_numpy(F).to(dev)
@@ -242,3 +242,33 @@ def test_kernel_matches_plain_on_card_444_chroma():
     rng = np.random.default_rng(4444)
     C, _, _, lfm, thr_t = _inputs_444_chroma(rng, 15, 23, 10)
     _kernel_vs_plain(C, lfm, thr_t, 15, 23, 10)
+
+
+@pytest.mark.cuda
+def test_kernel_repeated_runs_and_workspace_reuse_on_card(monkeypatch):
+    """Ten runs of one 1920x1088 input, back to back on one stream: a race
+    between superblocks would show as a run that differs.  Then two calls
+    in a row on one stream share one workspace, left full of stale
+    values: each call's reset must make both right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1010)
+    kw = dict(mi_rows=135, mi_cols=240, bd=10)
+    F, _, _, _, lfm, thr_t = _inputs(rng, 135, 240, 10)
+    args = (torch.from_numpy(lfm).to(dev), torch.from_numpy(thr_t).to(dev))
+    Fd = torch.from_numpy(F).to(dev)
+    want = LF.lf_frame_plain(Fd.clone(), *args, 1, **kw)
+    outs = [LF.lf_frame(Fd.clone(), *args, 1, **kw) for _ in range(10)]
+    for out in outs:
+        assert torch.equal(out, want)
+
+    F2, _, _, _, lfm2, thr2 = _inputs(rng, 135, 240, 10)
+    args2 = (torch.from_numpy(lfm2).to(dev), torch.from_numpy(thr2).to(dev))
+    want2 = LF.lf_frame_plain(torch.from_numpy(F2).to(dev), *args2, 1, **kw)
+    ws = torch.full((1 + F.shape[1] // 64,), 1 << 30, dtype=torch.int32,
+                    device=dev)
+    monkeypatch.setattr(LF, "workspace", lambda F: ws)
+    a = LF.lf_frame(Fd.clone(), *args, 1, **kw)
+    b = LF.lf_frame(torch.from_numpy(F2).to(dev), *args2, 1, **kw)
+    assert torch.equal(a, want) and torch.equal(b, want2)
