@@ -17,6 +17,12 @@ Phases, each of which exits non-zero on failure:
        - the 4:2:2 chroma loop filter against lf_plane_tiles at bit depths
          8, 10 and 12 on p1_04's 144x88 chroma planes and at 10 bits on
          1088x960 planes (that plain run is timed for phase 5);
+       - the loop filter's stream axis (lf_frames, one launch for N
+         frames) against lf_frames_plain and against N single lf_frame
+         calls: 16 frames on the 640x384 canvas at bit depths 8, 10 and
+         12, and 2 frames on the 1920x1088 canvas at 10 bits, lf_on random
+         per frame with at least one 0 (that frame must come back
+         untouched);
        - the tile probe at [200, 200] against tile_probe_plain and the
          probe's NumPy reference;
   3. run the frame step once at one 64x64 superblock (fused.entry);
@@ -26,16 +32,30 @@ Phases, each of which exits non-zero on failure:
          nc03 (loop filter on), hd01 (1080p), cp01 (compound prediction,
          scaled references), the 10- and 12-bit streams p2_01, p2_02 and
          p2_04, the 4:4:4 streams p3_01 (10-bit) and p1_01, the 4:2:2
-         streams p1_02 and p1_04, and hb01 (1080p 10-bit).  Every frame's
+         streams p1_02 and p1_04, hb01 (1080p 10-bit), and the lossless
+         streams ll01 and ll02 (filter level 0 throughout).  Every frame's
          MD5 must equal the golden file and every frame must run on the
          device; the loop-filter kernel must have launched on every
          stream with a filter level, the 4:2:2 chroma kernel on p1_02 and
          p1_04, and neither plain version ever;
        - the tile probe through its entry point (tools/tile_probe.py),
          checked against the probe's NumPy reference;
-  5. time a second, warm decode of nc03, hd01, cp01 and hb01, and each
-     kernel against its plain version (CUDA events); each timed run of
-     the loop filter is also held against the plain result.
+       - the multi-stream decoders (runtime/multistream.py), each run on
+         its own counts: BatchedTorchDecoder on 16 copies of nc03 (12
+         rounds), on lg01 + in01 + kf02 (48 rounds: the ring wraps, short
+         streams sit rounds out, filter levels differ within a round) and
+         on in02 + sc01 (sc01's resized frames leave the batch for the
+         single-stream step); then MultiStreamDecoder on kf01 + kf03.
+         Every MD5 must equal the golden file, every frame must run on the
+         device (on in02 + sc01: as many on the host as a TorchRecon gives
+         sc01 alone), and when every frame joined the batch the loop
+         filter must have launched once per round with a level, as the
+         port's parser reads the headers;
+  5. time a second, warm decode of nc03, hd01, cp01 and hb01, and of 16 x
+     nc03 through BatchedTorchDecoder (aggregate fps), and each kernel
+     against its plain version (CUDA events); each timed run of the loop
+     filter is also held against the plain result, and lf_frames on 16
+     640x384 frames is timed beside 16 lf_frame calls.
 
 The last two lines are a JSON record of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without
@@ -65,7 +85,9 @@ STREAMS = (("nc03_640x360_occl", 12, True), ("hd01_1920x1080_t4", 4, True),
            ("p3_01_176x144_444_10b", 6, True),
            ("p1_01_176x144_444", 6, True), ("p1_02_176x144_422", 6, True),
            ("p1_04_176x144_422_long", 10, True),
-           ("large/hb01_1920x1080_10b", 3, False))
+           ("large/hb01_1920x1080_10b", 3, False),
+           ("ll01_176x144_lossless", 6, False),
+           ("ll02_96x64_lossless_inter", 8, False))
 WARM = ("nc03_640x360_occl", "hd01_1920x1080_t4", "cp01_352x288_compound",
         "large/hb01_1920x1080_10b")
 LF_SHAPES = ((8, 8), (135, 240))      # mi grids: 64x64 and 1920x1088 canvas
@@ -73,6 +95,11 @@ LF_SHAPES = ((8, 8), (135, 240))      # mi grids: 64x64 and 1920x1088 canvas
 # 960x1088)
 LF422_SHAPES = ((18, 22), (135, 240))
 LF422_STREAMS = ("p1_02_176x144_422", "p1_04_176x144_422_long")
+LFS_SHAPE = (45, 80)                  # mi grid of the 640x384 canvas
+NC03_BATCH = ("nc03_640x360_occl",) * 16
+MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
+RESIZE = ("in02_352x288", "sc01_352x288_scaled")
+MSD = ("kf01_64x64", "kf03_odd_98x66")
 KERNELS = ("loopfilter", "tileprobe")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor float32 rate; the
@@ -140,6 +167,23 @@ def rand_lf_inputs(rng, mi_rows, mi_cols, bd, chroma_444=False):
     return F, lfm, thr
 
 
+def rand_lf_stack(rng, n, mi_rows, mi_cols, bd):
+    """n random frames [n, 3, ha, wa] with their lfm [n, n_sbs_pad, 2,
+    128] and thr [n, 64, 4] (rand_lf_inputs each)."""
+    ins = [rand_lf_inputs(rng, mi_rows, mi_cols, bd) for _ in range(n)]
+    return tuple(np.stack([x[i] for x in ins]) for i in range(3))
+
+
+def strided(dev, arr, pad=512):
+    """arr [n, ...] on the card as a view whose frames lie `pad` elements
+    apart, as the batched step passes each stream's segment of the stacked
+    flats."""
+    n, size = arr.shape[0], arr[0].size
+    rows = np.zeros((n, size + pad), arr.dtype)
+    rows[:, :size] = arr.reshape(n, -1)
+    return torch.from_numpy(rows).to(dev)[:, :size].view(arr.shape)
+
+
 def rand_422_inputs(rng, mi_rows, mi_cols, bd):
     """Random 4:2:2 frame F [3, ha, wa] (chroma planes in the left
     [ha, wa/2], luma zero) and the five int16 per-cell maps (vbits, hbits,
@@ -200,18 +244,30 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def lf_bound_ms(F, lfm, thr):
-    """(bound ms, "bytes" or "operations") of one lf_frame call on a 4:2:0
-    frame: its pixels (the luma plane and the top-left quarter of each
-    chroma plane of F) read once and written once, lfm and thr read once,
-    over the memory rate; against the int32 operations that this lfm's
-    edges need (a chroma entry, [64:128] of each half, is the edge of
-    both the U and the V lanes)."""
+def lf_work(F, lfm, thr):
+    """(bytes, operations) of one lf_frame call on a 4:2:0 frame: its
+    pixels (the luma plane and the top-left quarter of each chroma plane
+    of F) read once and written once, lfm and thr read once; the int32
+    operations that this lfm's edges need (a chroma entry, [64:128] of
+    each half, is the edge of both the U and the V lanes)."""
     _, ha, wa = F.shape
     px = ha * wa + 2 * (ha // 2) * (wa // 2)
     halves = lfm.reshape(-1, 2, 128)
-    return bound(2 * px * F.itemsize + lfm.nbytes + thr.nbytes,
-                 edge_ops(halves[:, :, :64]) + 2 * edge_ops(halves[:, :, 64:]))
+    return (2 * px * F.itemsize + lfm.nbytes + thr.nbytes,
+            edge_ops(halves[:, :, :64]) + 2 * edge_ops(halves[:, :, 64:]))
+
+
+def lf_bound_ms(F, lfm, thr):
+    """(bound ms, "bytes" or "operations") of one lf_frame call."""
+    return bound(*lf_work(F, lfm, thr))
+
+
+def lfs_bound_ms(F, lfm, thr, lf_on):
+    """(bound ms, "bytes" or "operations") of one lf_frames call: the work
+    of lf_frame on every frame with a level, summed."""
+    work = [lf_work(F[k], lfm[k], thr[k]) for k in range(len(lf_on))
+            if lf_on[k]]
+    return bound(sum(w[0] for w in work), sum(w[1] for w in work))
 
 
 def lf422_bound_ms(F, maps):
@@ -263,6 +319,121 @@ def decode(name: str, n_frames: int):
     t0 = time.perf_counter()
     md5s, recon = decode_md5(str(FIXTURES / f"{name}.ivf"), "cuda", n_frames)
     return md5s, recon, time.perf_counter() - t0
+
+
+def packets(name):
+    from cuda_vp9_torch.containers import IvfReader
+    with IvfReader(str(FIXTURES / f"{name}.ivf")) as r:
+        return [d for d, _ in r]
+
+
+def golden_md5(name):
+    return [ln.split()[0] for ln in
+            (FIXTURES / f"{name}.md5").read_text().splitlines()]
+
+
+def filter_levels(name):
+    """Per packet, the loop-filter level of each of its frames, read from
+    the uncompressed headers by the port's parser (the level's bits do not
+    depend on the reference sizes, so none are needed)."""
+    from cuda_vp9_torch.decoder.bitreader import parse_superframe_index
+    from cuda_vp9_torch.decoder.headers import parse_uncompressed_header
+    return [[parse_uncompressed_header(
+        d[o:o + n], ref_sizes=lambda i: (16, 16)).lf.filter_level
+        for o, n in parse_superframe_index(d)] for d in packets(name)]
+
+
+def rounds_with_level(names, rounds=None):
+    """Rounds (one packet per stream, no superframes) in which some
+    stream's frame has a loop-filter level: one lf_frames launch each when
+    every frame joins the batch."""
+    levels = [filter_levels(n)[:rounds] for n in names]
+    return sum(any(lv[i][0] for lv in levels if i < len(lv))
+               for i in range(max(map(len, levels))))
+
+
+def batched(names, rounds=None):
+    """Decode the streams in lockstep through BatchedTorchDecoder("cuda"),
+    one packet of each per round (the first `rounds` packets), and read
+    every frame back; returns (per-stream MD5s, the decoder, seconds)."""
+    from cuda_vp9_torch.tools.multistream_bench import run_batched
+    pk = [packets(n)[:rounds] for n in names]
+    t0 = time.perf_counter()
+    md5s, bd = run_batched(pk, "cuda")
+    return md5s, bd, time.perf_counter() - t0
+
+
+def multi_stream_paths(LF, L4, TP):
+    """Phase 4c: BatchedTorchDecoder on 16 x nc03, the 48-round mix and
+    in02 + sc01, then MultiStreamDecoder, each with the kernel counts set
+    to 0 before it; exits on a failed check.  Returns the stream-axis
+    kernel's launches on 16 x nc03."""
+    from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
+    from cuda_vp9_torch.runtime.multistream import MultiStreamDecoder
+    from cuda_vp9_torch.runtime.pipeline import TorchRecon
+    from cuda_vp9_torch.utils.md5 import frame_md5
+    lfs_launches = None
+    for label, names, rounds in (("16 x nc03", NC03_BATCH, None),
+                                 ("lg01 + in01 + kf02", MIX, None),
+                                 ("in02 + sc01", RESIZE, 6)):
+        LF.reset_counts()
+        L4.reset_counts()
+        TP.reset_counts()
+        md5s, bd, dt = batched(names, rounds)
+        st = bd.stats()
+        unbatched = sum(r["unbatched"] for r in st)
+        n_frames = sum(len(m) for m in md5s)
+        bad = [(n, [i for i, (a, b) in enumerate(zip(m, golden_md5(n)))
+                    if a != b]) for n, m in zip(names, md5s)]
+        bad = [b for b in bad if b[1]]
+        want = rounds_with_level(names, rounds) if not unbatched else None
+        print(f"batched {label}: {n_frames} frames in {bd.rounds} rounds, "
+              f"MD5 mismatches {bad}, on device "
+              f"{sum(r['device'] for r in st)}, on host "
+              f"{sum(r['host'] for r in st)}, frames_unbatched {unbatched}, "
+              f"lf_frames launches {LF.launches} (rounds with a level: "
+              f"{want}), plain calls {LF.plain_calls}, cold {dt:.2f} s "
+              f"({dt / max(bd.rounds, 1):.3f} s a round)")
+        if bad or LF.plain_calls or L4.plain_calls or any(
+                len(m) != len(golden_md5(n)[:rounds]) for n, m in zip(
+                    names, md5s)):
+            raise SystemExit(f"batched {label}: decode check failed")
+        if names is RESIZE:
+            alone = TorchRecon("cuda")
+            dec = NativeVp9Decoder(recon_fn=alone)
+            for p in packets(RESIZE[1])[:rounds]:
+                dec.decode(p)
+            print(f"batched {label}: sc01 frames_unbatched "
+                  f"{st[1]['unbatched']}, on host {st[1]['host']}; a "
+                  f"TorchRecon alone: on host {alone.frames_on_host}")
+            if not st[1]["unbatched"] or st[0]["host"] \
+                    or st[1]["host"] != alone.frames_on_host:
+                raise SystemExit("in02 + sc01: sc01's resized frames did "
+                                 "not leave the batch as expected")
+        elif unbatched or any(r["host"] for r in st) or LF.launches != want:
+            raise SystemExit(f"batched {label}: frames left the batch or "
+                             "the stream-axis kernel did not run once per "
+                             "round with a level")
+        if names is NC03_BATCH:
+            lfs_launches = LF.launches
+    LF.reset_counts()
+    msd = MultiStreamDecoder(len(MSD), lag=2)
+    pk = [packets(n) for n in MSD]
+    got = [[] for _ in MSD]
+    for i in range(max(map(len, pk))):
+        for s in range(len(MSD)):
+            if i < len(pk[s]):
+                msd.put(s, pk[s][i])
+        for s, f in msd.ready():
+            got[s].append(frame_md5(f.visible_planes()))
+    for s, f in msd.flush():
+        got[s].append(frame_md5(f.visible_planes()))
+    print(f"MultiStreamDecoder {' + '.join(MSD)}: stats {msd.stats()}, "
+          f"MD5 equal {[g == golden_md5(n) for g, n in zip(got, MSD)]}")
+    if any(g != golden_md5(n) for g, n in zip(got, MSD)) \
+            or any(st["host"] for st in msd.stats()):
+        raise SystemExit("MultiStreamDecoder: decode check failed")
+    return lfs_launches
 
 
 def main() -> int:
@@ -357,6 +528,33 @@ def main() -> int:
     if not torch.equal(Fo.cpu(), torch.from_numpy(F)) \
             or L4.launches != before:
         raise SystemExit("4:2:2 lf_on = 0 changed the frame or launched")
+    lfs_err = 0
+    for bd, n, mi in [(bd, 16, LFS_SHAPE) for bd in (8, 10, 12)] + [
+            (10, 2, LF_SHAPES[-1])]:
+        F, lfm, thr = rand_lf_stack(rng, n, *mi, bd)
+        lf_on = [int(v) for v in rng.integers(0, 2, n)]
+        lf_on[0], lf_on[1] = 0, 1
+        lfm_d, thr_d = strided(dev, lfm), strided(dev, thr)
+        kw = dict(mi_rows=mi[0], mi_cols=mi[1], bd=bd)
+        F0 = torch.from_numpy(F).to(dev)
+        Fk, Fs, Fp = F0.clone(), F0.clone(), F0.clone()
+        LF.lf_frames(Fk, lfm_d, thr_d, lf_on, **kw)
+        for k in range(n):
+            LF.lf_frame(Fs[k], lfm_d[k], thr_d[k], lf_on[k], **kw)
+        LF.lf_frames_plain(Fp, lfm_d, thr_d, lf_on, **kw)
+        torch.cuda.synchronize()
+        err = int((Fk - Fp).abs().max())
+        err_single = int((Fk - Fs).abs().max())
+        same = [torch.equal(Fk[k], F0[k]) for k in range(n)]
+        what = f"{n} x {F.shape[2]}x{F.shape[3]} bd {bd} lf_on {lf_on}"
+        print(f"lf_frames kernel vs plain {what}: max_abs_err {err} "
+              f"(tolerance 0), vs {n} lf_frame kernel calls {err_single}, "
+              f"frames with lf_on 0 untouched "
+              f"{all(same[k] for k in range(n) if not lf_on[k])}")
+        if err or err_single or any(same[k] != (not lf_on[k])
+                                    for k in range(n)):
+            raise SystemExit(f"lf_frames disagrees at {what}")
+        lfs_err = max(lfs_err, err, err_single)
     err, probe_err = probe_tool.run("cuda")
     print(f"tile_probe kernel [200, 200]: max_abs_err {probe_err} against "
           f"tile_probe_plain, {err} against the NumPy reference "
@@ -380,8 +578,7 @@ def main() -> int:
         md5s, recon, dt = decode(name, n)
         lf_by_stream[name] = LF.launches - before
         l4_here = L4.launches - before4
-        golden = [ln.split()[0] for ln in
-                  (FIXTURES / f"{name}.md5").read_text().splitlines()][:n]
+        golden = golden_md5(name)[:n]
         bad = [i for i, (a, b) in enumerate(zip(md5s, golden)) if a != b]
         print(f"{name}: {len(md5s)} frames, MD5 mismatches {bad}, "
               f"on device {recon.frames_on_device}, on host "
@@ -416,6 +613,9 @@ def main() -> int:
             or L4.launches:
         raise SystemExit("the tile-probe path failed")
 
+    # 4c. the multi-stream decoders, each counted on its own
+    lfs_launches = multi_stream_paths(LF, L4, TP)
+
     # 5. warm decode rate and kernel timing
     frames = {name: n for name, n, _ in STREAMS}
     for name in WARM:
@@ -423,6 +623,16 @@ def main() -> int:
         _, _, dt = decode(name, n)
         print(f"{name}: warm {n} frames {dt:.3f} s = {n / dt:.2f} fps "
               f"[{card}]")
+        if name == NC03_BATCH[0]:
+            single_fps = n / dt
+    md5s, bd, dt = batched(NC03_BATCH)
+    n_frames = sum(len(m) for m in md5s)
+    if any(m != golden_md5(NC03_BATCH[0]) for m in md5s):
+        raise SystemExit("16 x nc03 warm pass: MD5 mismatch")
+    print(f"16 x nc03 batched: warm {n_frames} frames in {bd.rounds} rounds "
+          f"{dt:.3f} s = {n_frames / dt:.2f} fps aggregate "
+          f"({dt / bd.rounds:.3f} s a round; single-stream nc03 "
+          f"{single_fps:.2f} fps in this run) [{card}]")
     lf_rows = {}
     for bd in (8, 10):
         F, lfm, thr = rand_lf_inputs(rng, *LF_SHAPES[-1], bd)
@@ -507,6 +717,38 @@ def main() -> int:
     print(f"tile_probe [200, 200] median: kernel {probe_ms:.4f} ms, plain "
           f"{probe_plain_ms:.4f} ms, bound {pbound:.6f} ms ({pby}) [{card}]")
 
+    F, lfm, thr = rand_lf_stack(rng, 16, *LFS_SHAPE, 10)
+    lf_on = [1] * 16
+    lfm_d, thr_d = strided(dev, lfm), strided(dev, thr)
+    kw = dict(mi_rows=LFS_SHAPE[0], mi_cols=LFS_SHAPE[1], bd=10)
+    F0 = torch.from_numpy(F).to(dev)
+    plains = []
+    lfs_plain_ms = cuda_ms(lambda f: LF.lf_frames_plain(f, lfm_d, thr_d,
+                                                        lf_on, **kw), 1,
+                           F0.clone, plains.append)
+    n_bad = []
+
+    def held_16(f):
+        n_bad.append(not torch.equal(f, plains[0]))
+
+    def sequential(f):
+        for k in range(16):
+            LF.lf_frame(f[k], lfm_d[k], thr_d[k], lf_on[k], **kw)
+
+    LF.lf_frames(F0.clone(), lfm_d, thr_d, lf_on, **kw)
+    sequential(F0.clone())
+    lfs_ms = cuda_ms(lambda f: LF.lf_frames(f, lfm_d, thr_d, lf_on, **kw),
+                     20, F0.clone, held_16)
+    seq_ms = cuda_ms(sequential, 20, F0.clone, held_16)
+    if len(n_bad) != 40 or any(n_bad):
+        raise SystemExit(f"lf_frames: {sum(n_bad)} of the 40 timed runs "
+                         "differ from the plain result")
+    lfs_bound, lfs_by = lfs_bound_ms(F, lfm, thr, lf_on)
+    print(f"lf_frames 16 x 640x384 bd 10 median: one launch {lfs_ms:.4f} "
+          f"ms, 16 lf_frame launches {seq_ms:.4f} ms, plain "
+          f"{lfs_plain_ms:.3f} ms (one run), bound {lfs_bound:.4f} ms "
+          f"({lfs_by}); 40 of 40 timed runs equal the plain result [{card}]")
+
     ms, plain_ms, bound, by = lf_rows[10]
     print(json.dumps({"kernels": [
         {"name": "lf_frame", "route": "cuda",
@@ -515,6 +757,12 @@ def main() -> int:
          "launches": lf_launches, "max_abs_err": lf_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": by, "library_ms": None},
+        {"name": "lf_frames", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/loopfilter.cu",
+         "replaces": "cuda_vp9_tpu/ops/pallas/loopfilter.py:430",
+         "launches": lfs_launches, "max_abs_err": lfs_err,
+         "ms": lfs_ms, "plain_ms": lfs_plain_ms, "bound_ms": lfs_bound,
+         "bound_by": lfs_by, "library_ms": None},
         {"name": "lf_plane_tiles", "route": "cuda",
          "source": "cuda_vp9_torch/csrc/loopfilter.cu",
          "replaces": "cuda_vp9_tpu/ops/device/lf_wave.py:180",

@@ -43,3 +43,13 @@ def state_from_tpu(recon, device):
     pool = torch.from_numpy(np.array(recon._pool)).to(device)
     ring = torch.from_numpy(np.array(recon._ring)).to(device)
     return pool, ring
+
+
+def batched_state_from_tpu(dec, device):
+    """(pool, ring) tensors on `device` from a JAX `BatchedFusedDecoder`
+    after it ran its rounds (the round in flight is run first): pool int32
+    [N, 8, 3, ha, wa], ring [N, RING, nout] in the ring's own dtype."""
+    dec._dispatch_round()
+    pool = torch.from_numpy(np.array(dec._pool)).to(device)
+    ring = torch.from_numpy(np.array(dec._ring)).to(device)
+    return pool, ring

@@ -1,9 +1,13 @@
 // VP9 deblocking loop filter, hand-written for Hopper: the whole-frame
-// filter (K1, `vp9_lf_frame`) and the 4:2:2 chroma filter (K7,
+// filter (K1, `vp9_lf_frames`) and the 4:2:2 chroma filter (K7,
 // `vp9_lf_plane_tiles`), each one persistent launch per call.
 //
 // K1 replaces cuda_vp9_tpu/ops/pallas/loopfilter.py `lf_frame` (with
-// `_make_kernel`, `_run_chains` and `_edge_chain`): the same int32 filter
+// `_make_kernel`, `_run_chains` and `_edge_chain`), both as the frame step
+// calls it and as the batched multi-stream step runs it under vmap (a
+// leading stream axis, runtime/fused.py get_batched_step): one launch
+// filters the frames of every stream that has a filter level, and a
+// single frame is its N = 1 case.  It computes the same int32 filter
 // math (vpx_dsp/loopfilter.c filter4/8/16 and the interior +4 edge, and
 // their highbd forms: thresholds, flat tests and clamps scale by bd - 8
 // for bd 10 and 12), the same packed metadata (lfm [n_sbs_pad, 2, 128]
@@ -49,28 +53,41 @@
 // Schedule.  One launch per call, 128 threads a block.  A block claims
 // the next tile row with an atomic ticket and walks it left to right;
 // before the horizontal pass of tile (r, c) it waits until row r-1 has
-// run tile c and the vertical pass of tile c + 1.  It only ever waits on
-// a row claimed before its own, by a block that is already running, so
-// the walk cannot deadlock, whatever order the blocks become resident
-// in.  Passes in flight at the same time touch disjoint pixels.  Each
-// pass stages what it reads in shared memory (a pixel outside its plane
-// reads 0: the Pallas kernel's 8-pixel zero apron), runs its chains
-// there, and writes back the pixels a chain may have changed (window
-// positions 1..14) that lie in the plane.  The ticket and the progress
-// flags live in an int32 workspace [1 + rows] that the wrapper allocates
-// and the entry point zeroes on the stream before the launch.
+// run tile c and the vertical pass of tile c + 1.  With several frames
+// (K1's stream axis), ticket t is row t % rows of the (t / rows)-th
+// frame, and a row waits only on the row above it in its own frame.  A
+// block only ever waits on a row claimed before its own (ticket t - 1),
+// by a block that is already running, so the walk cannot deadlock,
+// whatever order the blocks become resident in.  Passes in flight at the
+// same time touch disjoint pixels.  Each pass stages what it reads in
+// shared memory (a pixel outside its plane reads 0: the Pallas kernel's
+// 8-pixel zero apron), runs its chains there, and writes back the pixels
+// a chain may have changed (window positions 1..14) that lie in the
+// plane.  The ticket and the progress flags live in an int32 workspace
+// [1 + frames * rows] that the wrapper allocates and the entry point
+// zeroes on the stream before the launch.
 //
-// What bounds it on this card: the serial critical path of tile steps,
-// each two passes of dependent chains in shared memory with a staged
-// load and a store around each; not bytes (a 1080p frame is 12 MB of
-// int32 pixels, 7.6 us at the memory rate).  Measured by chip_smoke.py on
-// an NVIDIA H100 80GB HBM3 at its 700 W power limit: K1 0.741 ms per
-// 1920x1088 frame at bd 10, one SB step 13.4 us (so the 46-step path is
-// 0.615 ms); K7 0.579 ms for two 1088x960 planes, one tile step 9.6 us.
+// What bounds it on this card: the serial critical path of tile steps of
+// one frame (cols + rows - 1 steps), each two passes of dependent chains
+// in shared memory with a staged load and a store around each; not bytes
+// (a 1080p frame is 12 MB of int32 pixels, 7.6 us at the memory rate).
+// One frame runs one block per SB row, so a small frame leaves most of
+// the 132 SMs idle (a 640x384 frame: 6 blocks).  The stream axis fills
+// them: the rows of all N frames are in flight at once, and N frames
+// cost about one frame's critical path while all their rows are
+// resident.  Residency is bounded by registers: 242 per thread at 128
+// threads (ptxas -v) allow 2 blocks per SM, 264 on the card, so every
+// row of 16 640x384 frames (96 blocks) is resident at once.  Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at its 700 W power limit:
+// K1 0.714 ms per 1920x1088 frame at bd 10, one SB step 13.2 us (so the
+// 46-step path is 0.607 ms); 16 640x384 frames in one launch 0.260 ms,
+// against 3.564 ms for 16 launches; K7 0.558 ms for two 1088x960 planes,
+// one tile step 10.3 us.
 //
-// Frame layout: F is int32 [3, ha, wa] contiguous, ha and wa multiples of
-// 64.  For K1, U and V occupy the top-left [ha/2, wa/2] of their planes;
-// for K7, the left [ha, wa/2].  A cell whose bits are 0 reads nothing.
+// Frame layout: F is int32 [3, ha, wa] contiguous (K1: [N, 3, ha, wa]),
+// ha and wa multiples of 64.  For K1, U and V occupy the top-left
+// [ha/2, wa/2] of their planes; for K7, the left [ha, wa/2].  A cell
+// whose bits are 0 reads nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -202,21 +219,32 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-// The row walker of the header.  ws[0] is the ticket, ws[1 + r] the
-// progress of row r in half steps: 2 c + 1 once tile (r, c) has run its
-// vertical pass, 2 c + 2 once it has run both.  tile.vertical(r, c) and
-// tile.horizontal(r, c) run one pass of one tile with the whole block and
-// may use __syncthreads().
+// The row walker of the header, over `frames` frames of rows x cols
+// tiles.  ws[0] is the ticket, ws[1 + k rows + r] the progress of row r
+// of frame k in half steps: 2 c + 1 once tile (r, c) has run its
+// vertical pass, 2 c + 2 once it has run both.  tile.enter(k) selects
+// frame k (and may fill shared memory); tile.vertical(r, c) and
+// tile.horizontal(r, c) run one pass of one tile of that frame with the
+// whole block and may use __syncthreads().
 template <class Tile>
-__device__ void walk_rows(int* ws, int rows, int cols, const Tile& tile) {
-  __shared__ int s_row;
-  int* const progress = ws + 1;
+__device__ void walk_rows(int* ws, int frames, int rows, int cols,
+                          Tile& tile) {
+  __shared__ int s_ticket;
+  int frame = -1;
   for (;;) {
-    __syncthreads();  // every thread has read the last round's s_row
-    if (threadIdx.x == 0) s_row = atomicAdd(ws, 1);
+    __syncthreads();  // every thread has read the last round's s_ticket
+                      // and is done with the last frame's shared state
+    if (threadIdx.x == 0) s_ticket = atomicAdd(ws, 1);
     __syncthreads();
-    const int r = s_row;
-    if (r >= rows) return;
+    const int t = s_ticket;
+    if (t >= frames * rows) return;
+    const int k = t / rows, r = t % rows;
+    if (k != frame) {
+      frame = k;
+      tile.enter(k);
+      __syncthreads();
+    }
+    int* const progress = ws + 1 + k * rows;
     for (int c = 0; c < cols; ++c) {
       tile.vertical(r, c);
       // every thread's stores of the left strip come before the release
@@ -367,14 +395,34 @@ struct MapMeta {
 // to the left changes next; the horizontal pass stages the top strip
 // (rows 0..7 right of the corner), runs, and writes back the rest.
 
-// K1: SB (r, c) of the luma plane and both 4:2:0 chroma planes.
+// K1: SB (r, c) of the luma plane and both 4:2:0 chroma planes of one
+// frame of the stream axis.  enter(k) points the planes and lfm at frame
+// streams[k] (k itself without a stream list) and loads its thresholds.
 struct FrameTile {
+  int32_t* F;            // [N, 3, ha, wa]
+  const int16_t* lfm0;   // frame s's lfm at lfm0 + s * lfm_stride
+  const int16_t* thr0;   // frame s's thr [64, 4] at thr0 + s * thr_stride
+  const int* streams;    // [n_active] frame indices, or null
+  long long lfm_stride, thr_stride;
+  int ha, wa, sb_cols, bd;
   Plane y, u, v;
   const int16_t* lfm;
-  const int* thr;
-  int sb_cols, bd;
+  int* thr;           // shared: the frame's thresholds, bd-scaled, 256
   int *sy, *su, *sv;  // shared: 72 x YS luma, 40 x CS per chroma plane
   int* sl;            // shared: the SB's lfm, 256 entries
+
+  __device__ void enter(int k) {
+    const int s = streams ? streams[k] : k;
+    const size_t n = static_cast<size_t>(ha) * wa;
+    int32_t* f = F + 3 * n * s;
+    y = {f, wa, ha, wa};
+    u = {f + n, wa, ha / 2, wa / 2};
+    v = {f + 2 * n, wa, ha / 2, wa / 2};
+    lfm = lfm0 + lfm_stride * s;
+    const int16_t* t = thr0 + thr_stride * s;
+    for (int i = threadIdx.x; i < 256; i += kThreads)
+      thr[i] = t[i] << (bd - 8);
+  }
 
   // whether this thread's lfm entries hold an edge of its plane kind; a
   // plane with no edge in the SB is not written back (the chroma of a
@@ -451,6 +499,8 @@ struct ChromaTile {
   int *su, *sv;  // shared: 72 x CS per plane
   int* sm;       // shared: the tile's 8 x 4 cells of the five maps
 
+  __device__ void enter(int) {}  // one frame
+
   __device__ void vertical(int r, int c) const {
     const int t = threadIdx.x;
     Staged<64, 40> a, b;
@@ -500,21 +550,17 @@ struct ChromaTile {
 
 __global__ void __launch_bounds__(kThreads)
 lf_frame_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
-                const int16_t* __restrict__ thr, int* ws, int ha, int wa,
-                int bd) {
+                long long lfm_stride, const int16_t* __restrict__ thr,
+                long long thr_stride, const int* __restrict__ streams,
+                int n_active, int* ws, int ha, int wa, int bd) {
   __shared__ int sy[72 * YS];
   __shared__ int su[40 * CS];
   __shared__ int sv[40 * CS];
   __shared__ int sl[256];
   __shared__ int sthr[256];
-  for (int i = threadIdx.x; i < 256; i += kThreads)
-    sthr[i] = thr[i] << (bd - 8);
-  const size_t n = static_cast<size_t>(ha) * wa;
-  const FrameTile tile{{F, wa, ha, wa},
-                       {F + n, wa, ha / 2, wa / 2},
-                       {F + 2 * n, wa, ha / 2, wa / 2},
-                       lfm, sthr, wa / 64, bd, sy, su, sv, sl};
-  walk_rows(ws, ha / 64, wa / 64, tile);
+  FrameTile tile{F, lfm, thr, streams, lfm_stride, thr_stride, ha, wa,
+                 wa / 64, bd, {}, {}, {}, nullptr, sthr, sy, su, sv, sl};
+  walk_rows(ws, n_active, ha / 64, wa / 64, tile);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -527,35 +573,47 @@ lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
   __shared__ int sm[160];
   const size_t n = static_cast<size_t>(ha) * wa;
   const int wc = wa / 2;
-  const ChromaTile tile{{F + n, wa, ha, wc}, {F + 2 * n, wa, ha, wc},
-                        {vb, hb, mb, lm, hv}, wc / 8, bd - 8, bd, su, sv, sm};
-  walk_rows(ws, ha / 64, wc / 32, tile);
+  ChromaTile tile{{F + n, wa, ha, wc}, {F + 2 * n, wa, ha, wc},
+                  {vb, hb, mb, lm, hv}, wc / 8, bd - 8, bd, su, sv, sm};
+  walk_rows(ws, 1, ha / 64, wc / 32, tile);
 }
 
 }  // namespace
 
-// Filters F [3, ha, wa] in place: zeroes the workspace ws (int32, at
-// least 1 + ha / 64 entries) and launches the persistent kernel on
-// `stream`, one block per SB row.  Sets *launched to the number of
-// kernel launches made (1).  Returns the first CUDA error, 0 on success.
-extern "C" int vp9_lf_frame(void* F, const void* lfm, const void* thr,
-                            void* ws, int ha, int wa, int bd, void* stream,
-                            int* launched) {
+// Filters frames of F [N, 3, ha, wa] in place: frame streams[k] for k <
+// n_active (frame k when streams is null), with its lfm [n_sbs_pad, 2,
+// 128] at lfm + streams[k] * lfm_stride and its thr [64, 4] at thr +
+// streams[k] * thr_stride (int16 elements).  streams is an int32 device
+// array.  Zeroes the workspace ws (int32, at least 1 + n_active * ha / 64
+// entries) and launches the persistent kernel on `stream`, one block per
+// (frame, SB row).  Sets *launched to the number of kernel launches made
+// (1, or 0 when n_active is 0).  Returns the first CUDA error, 0 on
+// success.
+extern "C" int vp9_lf_frames(void* F, const void* lfm, long long lfm_stride,
+                             const void* thr, long long thr_stride,
+                             const void* streams, int n_active, void* ws,
+                             int ha, int wa, int bd, void* stream,
+                             int* launched) {
   *launched = 0;
+  if (n_active <= 0) return 0;
   const int rows = ha / 64;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(ws, 0, (1 + rows) * sizeof(int), st);
+  cudaError_t err =
+      cudaMemsetAsync(ws, 0, (1 + n_active * rows) * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lf_frame_kernel<<<rows, kThreads, 0, st>>>(
-      static_cast<int32_t*>(F), static_cast<const int16_t*>(lfm),
-      static_cast<const int16_t*>(thr), static_cast<int*>(ws), ha, wa, bd);
+  lf_frame_kernel<<<n_active * rows, kThreads, 0, st>>>(
+      static_cast<int32_t*>(F), static_cast<const int16_t*>(lfm), lfm_stride,
+      static_cast<const int16_t*>(thr), thr_stride,
+      static_cast<const int*>(streams), n_active, static_cast<int*>(ws), ha,
+      wa, bd);
   ++*launched;
   return static_cast<int>(cudaGetLastError());
 }
 
 // Filters the chroma planes of a 4:2:2 frame F [3, ha, wa] in place (the
 // left [ha, wa / 2] of planes 1 and 2); vb, hb, mb, lm, hv are int16
-// [ha / 8, wa / 16] each.  Workspace, stream and result as vp9_lf_frame.
+// [ha / 8, wa / 16] each.  Workspace (1 + ha / 64 entries), stream and
+// result as vp9_lf_frames.
 extern "C" int vp9_lf_plane_tiles(void* F, const void* vb, const void* hb,
                                   const void* mb, const void* lm,
                                   const void* hv, void* ws, int ha, int wa,

@@ -2,18 +2,23 @@
 
 `lf_frame` is the counterpart of `cuda_vp9_tpu/ops/pallas/loopfilter.py`
 `lf_frame`, in place on an int32 [3, ha, wa] frame (a luma plane and two
-4:2:0 chroma planes, bit depth 8, 10 or 12).  On a CUDA tensor it
-launches the kernel of `csrc/loopfilter.cu` or raises; on a CPU tensor it
-runs `lf_frame_plain`, the same math in torch ops.  Both keep the Pallas
-kernel's order: SB (r, c) after (r, c-1) and (r-1, c+1); per SB all
-vertical edge chains, then all horizontal ones; per chain the main edge
-and the interior +4 edge.  The kernel is one persistent launch per call:
-its blocks walk SB rows, each SB staged in shared memory, and wait on
-per-row progress flags in a small workspace this wrapper allocates.
+4:2:0 chroma planes, bit depth 8, 10 or 12).  `lf_frames` is the same
+kernel with a leading stream axis, the counterpart of that `lf_frame`
+under the batched step's vmap: it filters N frames [N, 3, ha, wa] of one
+geometry and bit depth, each with its own metadata, in one launch, and
+`lf_frame` is its N = 1 call.  On a CUDA tensor they launch the kernel of
+`csrc/loopfilter.cu` or raise; on a CPU tensor they run `lf_frame_plain`
+per frame, the same math in torch ops.  Both keep the Pallas kernel's
+order: SB (r, c) after (r, c-1) and (r-1, c+1); per SB all vertical edge
+chains, then all horizontal ones; per chain the main edge and the
+interior +4 edge.  The kernel is one persistent launch per call: its
+blocks walk the SB rows of every frame with a filter level, each SB
+staged in shared memory, and wait on per-row progress flags in a small
+workspace this wrapper allocates.
 
-`launches` counts the kernel launches (one per call with a filter level,
-as the C entry point reports them) and `plain_calls` the calls of the
-plain version.
+`launches` counts the kernel launches (one per call with any filter
+level, as the C entry point reports them) and `plain_calls` the calls of
+the plain version (one per frame).
 """
 
 from __future__ import annotations
@@ -179,6 +184,30 @@ def lf_frame_plain(F, lfm, thr, lf_on, *, mi_rows, mi_cols, bd):
 # ----------------------------------------------------------------- kernel
 
 
+def lf_frames_plain(F, lfm, thr, lf_on, *, mi_rows, mi_cols, bd):
+    """lf_frame_plain on each frame F[k] with lfm[k], thr[k] and
+    lf_on[k]; returns F."""
+    for k, on in enumerate(lf_on):
+        lf_frame_plain(F[k], lfm[k], thr[k], on, mi_rows=mi_rows,
+                       mi_cols=mi_cols, bd=bd)
+    return F
+
+
+def _check_frames(F, lfm, thr, lf_on, mi_rows, mi_cols):
+    """The stream-axis shapes: F [N, 3, ha, wa] contiguous, lfm
+    [N, >= n_sbs, 2, 128] and thr [N, 64, 4] with each frame's entry
+    contiguous (any stride between frames), N == len(lf_on)."""
+    if F.dim() != 4 or lfm.dim() != 4 or thr.dim() != 3 \
+            or not F.shape[0] == lfm.shape[0] == thr.shape[0] == len(lf_on):
+        raise ValueError("lf_frames: F [N, 3, ha, wa], lfm [N, n_sbs_pad, "
+                         "2, 128], thr [N, 64, 4] and N lf_on values")
+    if not F.is_contiguous() or lfm.stride()[1:] != (256, 128, 1) \
+            or thr.stride()[1:] != (4, 1):
+        raise ValueError("lf_frames: F must be contiguous, and each frame's "
+                         "lfm and thr contiguous")
+    _check(F[0], lfm[0], thr[0], mi_rows, mi_cols)
+
+
 def _check(F, lfm, thr, mi_rows, mi_cols):
     if F.dtype != torch.int32 or F.dim() != 3 or F.shape[0] != 3 \
             or not F.is_contiguous():
@@ -199,26 +228,65 @@ def _check(F, lfm, thr, mi_rows, mi_cols):
         raise ValueError("F, lfm and thr must be on one device")
 
 
-def workspace(F):
-    """The kernels' int32 scratch for a frame F [3, ha, wa]: a row ticket
-    and one progress flag per SB row.  The C entry point zeroes it on the
-    stream before its launch; the caching allocator keeps it with the
-    stream, so the next call may get the same block back."""
-    return torch.empty(1 + F.shape[1] // 64, dtype=torch.int32,
+def workspace(F, frames: int = 1):
+    """The kernels' int32 scratch for `frames` frames of F's geometry
+    ([..., ha, wa]): a row ticket and one progress flag per SB row of each
+    frame.  The C entry point zeroes it on the stream before its launch;
+    the caching allocator keeps it with the stream, so the next call may
+    get the same block back."""
+    return torch.empty(1 + frames * (F.shape[-2] // 64), dtype=torch.int32,
                        device=F.device)
 
 
 def _lib():
     """The bound C entry point; builds csrc/loopfilter.cu at first use."""
     from ._build import load
-    fn = load("loopfilter").vp9_lf_frame
+    fn = load("loopfilter").vp9_lf_frames
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.restype = i
+        fn.argtypes = [vp, vp, ll, vp, ll, vp, i, vp, i, i, i, vp,
+                       ctypes.POINTER(i)]
     return fn
+
+
+def lf_frames(F, lfm, thr, lf_on, *, mi_rows: int, mi_cols: int, bd: int):
+    """Loop filter the N frames F [N, 3, ha, wa] int32 in place, frame k
+    with lfm[k] ([n_sbs_pad, 2, 128] int16), thr[k] ([64, 4] int16) and
+    lf_on[k] (a host int; 0 leaves frame k untouched); returns F.  One
+    kernel launch filters every frame with a level.  CUDA tensors go to
+    the kernel, CPU tensors to lf_frames_plain."""
+    if F.device.type == "cpu":
+        return lf_frames_plain(F, lfm, thr, lf_on, mi_rows=mi_rows,
+                               mi_cols=mi_cols, bd=bd)
+    if F.device.type != "cuda":
+        raise ValueError(f"lf_frames: unsupported device {F.device}")
+    _check_frames(F, lfm, thr, lf_on, mi_rows, mi_cols)
+    on = [k for k, v in enumerate(lf_on) if v]
+    if not on:
+        return F
+    global launches
+    fn = _lib()
+    streams = None
+    if len(on) < len(lf_on):
+        # the frames with a level, as an int32 device array; every frame
+        # is the kernel's identity order and needs none
+        streams = torch.tensor(on, dtype=torch.int32).pin_memory().to(
+            F.device, non_blocking=True)
+    n = ctypes.c_int(0)
+    ws = workspace(F, len(on))
+    with torch.cuda.device(F.device):
+        stream = torch.cuda.current_stream(F.device).cuda_stream
+        err = fn(F.data_ptr(), lfm.data_ptr(), lfm.stride(0), thr.data_ptr(),
+                 thr.stride(0), None if streams is None else
+                 streams.data_ptr(), len(on), ws.data_ptr(), F.shape[2],
+                 F.shape[3], bd, stream, ctypes.byref(n))
+    launches += n.value
+    if err:
+        raise RuntimeError(f"vp9_lf_frames: CUDA error {err}")
+    return F
 
 
 def lf_frame(F, lfm, thr, lf_on: int, *, mi_rows: int, mi_cols: int,
@@ -227,25 +295,13 @@ def lf_frame(F, lfm, thr, lf_on: int, *, mi_rows: int, mi_cols: int,
 
     lfm: [n_sbs_pad, 2, 128] int16 (pack_lfm_fields: bits | level << 4 per
     cell); thr: [64, 4] int16 level -> threshold table; lf_on: host int
-    (0 skips all work).  CUDA tensors go to the kernel, CPU tensors to
-    lf_frame_plain."""
+    (0 skips all work).  The N = 1 call of lf_frames: CUDA tensors go to
+    the kernel, CPU tensors to lf_frame_plain."""
     if F.device.type == "cpu":
         return lf_frame_plain(F, lfm, thr, lf_on, mi_rows=mi_rows,
                               mi_cols=mi_cols, bd=bd)
     if F.device.type != "cuda":
         raise ValueError(f"lf_frame: unsupported device {F.device}")
-    _check(F, lfm, thr, mi_rows, mi_cols)
-    if not lf_on:
-        return F
-    global launches
-    fn = _lib()
-    n = ctypes.c_int(0)
-    ws = workspace(F)
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = fn(F.data_ptr(), lfm.data_ptr(), thr.data_ptr(), ws.data_ptr(),
-                 F.shape[1], F.shape[2], bd, stream, ctypes.byref(n))
-    launches += n.value
-    if err:
-        raise RuntimeError(f"vp9_lf_frame: CUDA error {err}")
+    lf_frames(F[None], lfm[None], thr[None], (lf_on,), mi_rows=mi_rows,
+              mi_cols=mi_cols, bd=bd)
     return F

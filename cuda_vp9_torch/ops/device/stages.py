@@ -144,18 +144,21 @@ def intra_wave(Fbuf, R, plane, x0, y0, mode, n_above, n_left, tl_mode,
                have_up, have_left, *, bs: int, bd: int):
     """Predict + add residual + clip for one wave's bs-sized units, in place.
 
-    Fbuf: int32 [3*ha*wa + 1], the frame [3, ha, wa] flattened plus one
-    trash cell; R: int32 [3, ha, wa] residual.  Unit fields are int32 [N]
+    Fbuf: int32 [P*ha*wa + 1], P planes [P, ha, wa] flattened plus one
+    trash cell; R: int32 [P, ha, wa] residual.  P is 3 for one frame, and
+    3N for a stack of N frames, where plane 3s + p is plane p of frame s
+    (the batched step runs the same wave of every stream in one call).
+    Unit fields are int32 [N]
     tensors as in the JAX stage: n_above valid above pixels (0 => base-1
     fill; indices beyond replicate the last valid one), n_left likewise
     with base+1 fill, tl_mode 0 = read frame, 1 = base+1, 2 = base-1.
     Padded units carry y0 = -32768 and write only the trash cell."""
-    _, ha, wa = R.shape
-    F = Fbuf[:-1].view(3, ha, wa)
+    P, ha, wa = R.shape
+    F = Fbuf[:-1].view(P, ha, wa)
     dev = Fbuf.device
     base = 128 << (bd - 8)
     maxval = (1 << bd) - 1
-    plane = plane.long().clamp(0, 2)
+    plane = plane.long().clamp(0, P - 1)
     i2 = torch.arange(2 * bs, device=dev)
     i1 = torch.arange(bs, device=dev)
     ys = y0.long().clamp(min=0)

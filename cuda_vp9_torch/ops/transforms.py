@@ -1,7 +1,9 @@
-"""Inverse DCT/ADST 4..32 on torch tensors, bd = 8, 10 and 12.
+"""Inverse DCT/ADST 4..32 and the lossless 4x4 WHT on torch tensors, bd =
+8, 10 and 12.
 
-Counterpart of `cuda_vp9_tpu/ops/ref/transforms.inv_txfm2d` and
-`inv_txfm2d_select` as `runtime/fused._residual_pass` calls them:
+Counterpart of `cuda_vp9_tpu/ops/ref/transforms.inv_txfm2d`,
+`inv_txfm2d_select` and `inv_wht2d` as `runtime/fused._residual_pass`
+calls them:
 
   * bd 8, `work_dtype=jnp.int16`: the WRAPLOW points are native int16
     arithmetic (adds and subtracts wrap in int16), every product is
@@ -18,7 +20,9 @@ touch their inputs through a domain object (`w`, `n`, `rs`) and
 tensors.  The 2-D wrappers below replace the reference's, which call
 NumPy's `.astype`.
 
-No WHT: lossless frames are outside this slice.
+The WHT (lossless frames) runs in int32 at every bit depth, as the JAX
+step calls it (`work_dtype=jnp.int32`), wrapping each 1-D output to 16
+bits at bd 8 and to bd + 8 bits above.
 """
 
 from __future__ import annotations
@@ -131,3 +135,26 @@ def inv_txfm2d_select(coeffs: torch.Tensor, tx_size: int,
                       adst(cols_in, D, _ident, _XP).reshape(N, n, n),
                       dct(cols_in, D, _ident, _XP).reshape(N, n, n))
     return _finish(out.transpose(1, 2), tx_size)
+
+
+def _wht1d(v, wrap):
+    """One 1-D inverse WHT along the last axis of v [..., 4]
+    (vpx_iwht4x4_16_add_c)."""
+    a1, c1, d1, b1 = v.unbind(-1)
+    a1 = a1 + c1
+    d1 = d1 - b1
+    e1 = (a1 - d1) >> 1
+    b1 = e1 - b1
+    c1 = e1 - c1
+    a1 = a1 - b1
+    d1 = d1 + c1
+    return torch.stack([wrap(a1), wrap(b1), wrap(c1), wrap(d1)], -1)
+
+
+def inv_wht2d(coeffs: torch.Tensor, bd: int = 8) -> torch.Tensor:
+    """coeffs [N, 16] row-major -> residual [N, 4, 4] int32: the inputs
+    shift right by 2 first, and there is no final shift."""
+    wrap = T.make_wrap(bd)
+    x = coeffs.to(torch.int32).reshape(-1, 4, 4)
+    rows = _wht1d(x >> 2, wrap)
+    return _wht1d(rows.transpose(1, 2), wrap).transpose(1, 2)

@@ -2,9 +2,15 @@
 
 Counterpart of `cuda_vp9_tpu/runtime/fused.py` (`make_frame_step`,
 `get_frame_step`) for the slice this package covers: bit depths 8, 10 and
-12, chroma 4:2:0, 4:4:4 and 4:2:2, a dense wire (pages_tier == 0) and no
-lossless frames.  It reads the flat int16 wire of `runtime/pack.py` or of
-the native packer, the same bytes the JAX step reads.
+12, chroma 4:2:0, 4:4:4 and 4:2:2, lossless frames (the WHT on bucket
+tx0, the only bucket of a lossless layout) and a dense wire
+(pages_tier == 0).  It reads the flat int16 wire of `runtime/pack.py` or
+of the native packer, the same bytes the JAX step reads.
+
+`make_batched_step` / `get_batched_step` are the multi-stream step (the
+counterpart of JAX's vmapped `get_batched_step`): the same stages, once
+per round for the 4:2:0 frames of N streams of one geometry, with the
+loop filter as one launch of the stream-axis kernel (`lf_frames`).
 
 step(pool, ring, kernels, flat) reconstructs one frame and updates
 `pool` and `ring` in place (JAX donates them; here the update is in
@@ -51,7 +57,7 @@ from torch.profiler import record_function
 from .. import models as M
 from ..ops import transforms as T
 from ..ops.cuda.lf422 import lf_chroma_422
-from ..ops.cuda.loopfilter import lf_frame
+from ..ops.cuda.loopfilter import lf_frame, lf_frames
 from ..ops.device import stages
 from . import pack
 
@@ -68,13 +74,10 @@ def cdiv(a, b):
     return (a + b - 1) // b
 
 
-def require_slice(lossless: bool, ss=(1, 1), scaled: bool = False) -> None:
+def require_slice(ss=(1, 1), scaled: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP queue-1 item, for a
     frame outside the slice this package ports; such a frame never goes
     to the host oracle."""
-    if lossless:
-        raise NotImplementedError(
-            "lossless frames: ROADMAP queue 1 item 7 (WHT)")
     if tuple(ss) not in CHROMA_FORMATS:
         raise NotImplementedError(
             f"chroma subsampling {tuple(ss)} (4:4:0): ROADMAP queue 1 "
@@ -122,13 +125,15 @@ def _scan_table(tx: int, ncoef: int, device) -> torch.Tensor:
 
 
 def residual_units(Rbuf, coeffs, pos, tx: int, ha: int, wa: int,
-                   bd: int = 8):
+                   bd: int = 8, lossless: bool = False):
     """Inverse-transform N units and write them into the residual frame.
 
     coeffs [N, n*n] raster order, int16 at bd 8 and int32 above; pos
     [N, 4] int32 = (plane, y + 1, x, tx_type), y + 1 == 0 marking a padded
-    record (fused.py:44-63)."""
-    if tx == 3:
+    record (fused.py:44-63).  Lossless units (tx 0) take the WHT."""
+    if lossless:
+        resid = T.inv_wht2d(coeffs, bd)
+    elif tx == 3:
         resid = T.inv_txfm2d(coeffs, 3, 0, bd)
     else:
         resid = T.inv_txfm2d_select(coeffs, tx, pos[:, 3] & 3, bd)
@@ -160,7 +165,8 @@ def mc_predict(pool, kernels, hdr, u, w: int, bd: int):
     """8-tap sub-pel prediction of N w x w tiles (ops/ref/inter
     convolve_block semantics; counterpart of fused._mc_chunk_compute).
 
-    pool [8, 3, pha, pwa] int32; kernels [4, 16, 8] int32; hdr [N, 8]
+    pool [S, 3, pha, pwa] int32 (S = 8 slots, or 8N for the pools of N
+    streams, slot 8s + i); kernels [4, 16, 8] int32; hdr [N, 8]
     each tile's chunk header (slot, plane, srow, cw, chh, ...); u [N, 4]
     wire records (dx | filt << 13, dy + 1, sr, sc) with sr / sc =
     ((src - dst) << 4) | subpel.  Reads rows clip(y0 - 3 + i, 0, chh - 1)
@@ -174,7 +180,7 @@ def mc_predict(pool, kernels, hdr, u, w: int, bd: int):
     filt = torch.where(valid, u[:, 0] >> 13, 0) & 3
     x0 = (u[:, 0] & 0x1FFF) + (u[:, 3] >> 4)     # sc >> 4: arithmetic
     y0 = u[:, 1] - 1 + (u[:, 2] >> 4)
-    slot = torch.where(valid, hdr[:, 0], 0).clamp(0, 7)
+    slot = torch.where(valid, hdr[:, 0], 0).clamp(0, pool.shape[0] - 1)
     plane = torch.where(valid, hdr[:, 1], 0).clamp(0, 2)
     cw = torch.where(valid, hdr[:, 3], 1).clamp(1, pwa)
     chh = torch.where(valid, hdr[:, 4], 1).clamp(1, pha)
@@ -285,36 +291,47 @@ def mcs_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
 
 def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int, ss=(1, 1)):
     """F = clip(F + R) over the non-skip inter mi cells (fused.py:620-633).
-    mp [mi_rows, cdiv(mi_cols, 16)] int32, 16 cells per (sign-extended)
-    word; a chroma cell is (8 >> ss_y) x (8 >> ss_x) pixels."""
+    F, R [..., 3, ha, wa]; mp [..., mi_rows, cdiv(mi_cols, 16)] int32, 16
+    cells per (sign-extended) word; a chroma cell is (8 >> ss_y) x
+    (8 >> ss_x) pixels.  Leading dimensions are frames (the batched
+    step's streams)."""
     bits = torch.arange(16, device=F.device, dtype=I32)
-    m = ((mp[:, :, None] >> bits) & 1).reshape(mi_rows, -1)[:, :mi_cols] != 0
+    m = ((mp[..., None] >> bits) & 1).reshape(
+        *mp.shape[:-2], mi_rows, -1)[..., :mi_cols] != 0
     maxv = (1 << bd) - 1
     for planes, gy, gx in ((slice(0, 1), 8, 8),
                            (slice(1, 3), 8 >> ss[1], 8 >> ss[0])):
-        cm = m.repeat_interleave(gy, 0).repeat_interleave(gx, 1)
-        h, w = cm.shape
-        f = F[planes, :h, :w]
-        f.copy_(torch.where(cm, (f + R[planes, :h, :w]).clamp(0, maxv), f))
+        cm = m.repeat_interleave(gy, -2).repeat_interleave(gx, -1)
+        h, w = cm.shape[-2:]
+        f = F[..., planes, :h, :w]
+        f.copy_(torch.where(cm[..., None, :, :],
+                            (f + R[..., planes, :h, :w]).clamp(0, maxv), f))
 
 
 # ----------------------------------------------------------------- intra
 
 
-def intra_chunk(Fbuf, R, u, bs: int, bd: int):
+def intra_chunk(Fbuf, R, u, bs: int, bd: int, plane_off=None, keep=None):
     """One intra chunk from its 4-int16 records (fused._intra_chunk):
       w0 = x0/4 | plane << 14
       w1 = (y0/4 + 1) | have_up << 15      (all-zero record = padding)
       w2 = mode | n_above << 4 | n_left << 10
       w3 = tl_mode | have_left << 2
-    u [CHUNK, 4] int32, sign-extended from int16."""
+    u [CHUNK, 4] int32, sign-extended from int16.  For a stack of frames
+    (R [3N, ha, wa]), plane_off [CHUNK] adds each record's frame offset
+    3s to its plane, and records where keep [CHUNK] is false are padding."""
     w0 = u[:, 0] & 0xFFFF
     w1 = u[:, 1] & 0xFFFF
     w2 = u[:, 2] & 0xFFFF
     w3 = u[:, 3]
     y0q = w1 & 0x7FFF
     y0 = torch.where(y0q == 0, -32768, (y0q - 1) << 2)
-    stages.intra_wave(Fbuf, R, w0 >> 14, (w0 & 0x3FFF) << 2, y0, w2 & 15,
+    if keep is not None:
+        y0 = torch.where(keep, y0, -32768)
+    plane = w0 >> 14
+    if plane_off is not None:
+        plane = plane + plane_off
+    stages.intra_wave(Fbuf, R, plane, (w0 & 0x3FFF) << 2, y0, w2 & 15,
                       (w2 >> 4) & 63, (w2 >> 10) & 63, w3 & 3, w1 >> 15,
                       (w3 >> 2) & 1, bs=bs, bd=bd)
 
@@ -355,10 +372,10 @@ def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
 
 
 def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
-                    ss=(1, 1)):
-    """The step for one frame geometry, bit depth, chroma format and
-    capacity tier (see the module docstring).  step(pool, ring, kernels,
-    flat) -> None."""
+                    ss=(1, 1), lossless: bool = False):
+    """The step for one frame geometry, bit depth, chroma format, capacity
+    tier and lossless flag (see the module docstring).  step(pool, ring,
+    kernels, flat) -> None."""
     ss = tuple(ss)
     if ss not in CHROMA_FORMATS or bd not in (8, 10, 12):
         raise ValueError(f"no frame step for bd {bd}, chroma {ss}")
@@ -399,7 +416,8 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
         with record_function("vp9.residual"):
             for name, tx, ncoef in pack.COEFF_BUCKETS:
                 n = int(misc[pack.MISC_TRIP[name]]) * pack.COEFF_CHUNK[name]
-                if not n:
+                # a lossless layout holds bucket tx0 only (fused.py:541)
+                if not n or f"coeff_{name}" not in segs:
                     continue
                 if bd == 8:
                     cm = seg(f"coeff_{name}", n, torch.int16)
@@ -414,11 +432,12 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
                     if key not in scans:
                         scans[key] = _scan_table(tx, ncoef, dev)
                     cm = expand_prefix(cm, pos[:, 3], scans[key], n2)
-                residual_units(Rbuf, cm, pos, tx, ha, wa, bd)
+                residual_units(Rbuf, cm, pos, tx, ha, wa, bd, lossless)
             for name, chunk, trip in (
                     ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
                     ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
                 # 8-bit only: the layout has no coo buckets above 8 bits
+                # nor in a lossless frame
                 n = int(misc[trip]) * chunk
                 if n and f"coeff_{name}" in segs:
                     residual_units(Rbuf,
@@ -476,11 +495,207 @@ def get_frame_step(mi_rows: int, mi_cols: int, tier: str,
     frame's (scaled references).  Uncached: the caller keeps the result,
     because the native packer caches per layout object."""
     ss = tuple(ss)
-    require_slice(lossless, ss, tier == "scaled")
+    require_slice(ss, tier == "scaled")
     caps = pack.compute_caps(mi_rows, mi_cols, tier, lossless,
                              pool_ha=pool_ha, ss=ss)
     layout = pack.build_layout(caps, mi_rows, mi_cols, lossless, bd, ss=ss)
-    return make_frame_step(mi_rows, mi_cols, layout, bd, ss), caps, layout
+    return (make_frame_step(mi_rows, mi_cols, layout, bd, ss, lossless),
+            caps, layout)
+
+
+# ----------------------------------------------------------------- batched
+
+
+def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
+                      bd: int = 8, lossless: bool = False):
+    """The step of N same-geometry 4:2:0 streams decoded in lockstep: the
+    counterpart of the vmapped step of `fused.get_batched_step`
+    (fused.py:724-766), with the vmap written out as a stream axis.
+
+    step(pool, ring, kernels, flats, active) -> None.  pool [N, 8, 3, ha,
+    wa] int32 and ring [N, RING, nout] are updated in place; flats is a
+    HOST int16 array [A, nflat], the flat of each stream in `active` (a
+    host sequence of A distinct stream indices: the streams with a frame
+    this round, in any order).  A stream outside `active` sits the round
+    out: no records, no refresh, no ring write.  Every loop bound comes
+    from the host flats, as in the single-frame step.
+
+    The A frames share one frame buffer of 3A planes (plus the trash
+    element), frame k at planes 3k .. 3k + 2, and every stage runs once
+    for all of them: each coefficient bucket, each MC class (landed in
+    two steps, so that every compound average sees its first
+    prediction), the mask add, each intra chunk index (one call per
+    distinct block size among the streams' chunk i; the chunks of two
+    streams never depend on each other), one `lf_frames` launch, one
+    indexed pool refresh and one indexed ring write.  A stream whose
+    count in a bucket, class or chunk list is below the round's most
+    runs the rest as padding records (the wire is zero there), as JAX's
+    shared round-max trip counts do."""
+    ha = ((mi_rows + 7) & ~7) * 8
+    wa = ((mi_cols + 7) & ~7) * 8
+    hc, wc = ha >> 1, wa >> 1
+    segs = layout.segs
+    nflat = cdiv(layout.size, pack.PAGE) * pack.PAGE
+    ich = segs["intra"][1][1]
+    scans = {}
+
+    def step(pool, ring, kernels, flats: np.ndarray, active):
+        dev = pool.device
+        A = len(active)
+        if tuple(pool.shape) != (n_streams, 8, 3, ha, wa) \
+                or flats.shape != (A, nflat) or not A:
+            raise ValueError("batched step: pool, flats or active do not "
+                             "match the step's geometry")
+        miscs = [layout.view(f, "misc").astype(np.int64) for f in flats]
+        # pool refresh pairs: (slot 8s + i of the stacked pool, frame k)
+        refresh = [(8 * s + i, k) for k, (s, m) in enumerate(
+            zip(active, miscs)) for i in range(8) if m[5 + i] > 0]
+        aux = np.array(list(active) + [d for d, _ in refresh]
+                       + [k for _, k in refresh], np.int16)
+        with record_function("vp9.upload"):
+            up = torch.from_numpy(np.concatenate([flats.reshape(-1), aux])
+                                  ).to(dev)
+        flat_d = up[:A * nflat].view(A, nflat)
+        aux_d = up[A * nflat:].long()
+        act_d = aux_d[:A]
+
+        def most(slot):
+            return max(int(m[slot]) for m in miscs)
+
+        def seg(name, rows=None, dtype=I32):
+            """[A, ...] device view of a segment of every flat (first
+            `rows` rows), sign-extended to int32 unless dtype is int16."""
+            off, shape = segs[name]
+            if rows is not None:
+                shape = (rows,) + tuple(shape[1:])
+            a = flat_d[:, off:off + int(np.prod(shape))].view(A, *shape)
+            return a if dtype == torch.int16 else a.to(dtype)
+
+        Fbuf = torch.zeros(3 * A * ha * wa + 1, dtype=I32, device=dev)
+        Rbuf = torch.zeros_like(Fbuf)
+        F = Fbuf[:-1].view(A, 3, ha, wa)
+        R = Rbuf[:-1].view(A, 3, ha, wa)
+        poff = 3 * torch.arange(A, device=dev, dtype=I32)[:, None]
+
+        with record_function("vp9.residual"):
+            for name, tx, ncoef in pack.COEFF_BUCKETS:
+                n = most(pack.MISC_TRIP[name]) * pack.COEFF_CHUNK[name]
+                if not n or f"coeff_{name}" not in segs:
+                    continue
+                if bd == 8:
+                    cm = seg(f"coeff_{name}", n, torch.int16)
+                else:
+                    cm = ((seg(f"coeffh_{name}", n) << 15)
+                          + seg(f"coeff_{name}", n))
+                cm = cm.reshape(A * n, ncoef)
+                pos = seg(f"cpos_{name}", n)
+                pos[:, :, 0] += poff
+                pos = pos.reshape(A * n, 4)
+                n2 = (4 << tx) ** 2
+                if ncoef < n2:
+                    key = (tx, ncoef)
+                    if key not in scans:
+                        scans[key] = _scan_table(tx, ncoef, dev)
+                    cm = expand_prefix(cm, pos[:, 3], scans[key], n2)
+                residual_units(Rbuf, cm, pos, tx, ha, wa, bd, lossless)
+            for name, chunk, trip in (
+                    ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
+                    ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
+                n = most(trip) * chunk
+                if n and f"coeff_{name}" in segs:
+                    pos = seg(f"cpos_{name}", n)
+                    pos[:, :, 0] += poff
+                    cm = seg(f"coeff_{name}", n, torch.int16)
+                    residual_units(Rbuf,
+                                   expand_pairs(cm.reshape(A * n, -1)),
+                                   pos.reshape(A * n, 4), 3, ha, wa)
+
+        with record_function("vp9.inter"):
+            pool_s = pool.view(n_streams * 8, 3, ha, wa)
+            misc_d = seg("misc")
+            for w, n_slot, r0_slot in MC_CLASSES:
+                n = most(n_slot)
+                if not n:
+                    continue
+                u = seg(f"mc{w}", n)
+                ch = u.shape[2]
+                u = u.reshape(-1, 4)
+                hd = seg(f"mc{w}h", n)
+                plane = (hd[:, :, 1] + poff).repeat_interleave(ch, 1)
+                hd[:, :, 0] += 8 * act_d[:, None].to(I32)
+                # chunks before each stream's own n_ref0 are first
+                # predictions, the others compound second ones
+                first = (torch.arange(n, device=dev)[None, :]
+                         < misc_d[:, r0_slot, None]
+                         ).repeat_interleave(ch, 1).reshape(-1)
+                pred = mc_predict(pool_s, kernels,
+                                  hd.repeat_interleave(ch, 1).reshape(-1, 8),
+                                  u, w, bd)
+                plane = plane.reshape(-1)
+                y0, x0 = u[:, 1] - 1, u[:, 0] & 0x1FFF
+                valid = u[:, 1] != 0
+                _put_blocks(Fbuf, plane, y0, x0, valid & first, pred,
+                            ha, wa)
+                second = valid & ~first
+                cur = Fbuf[_block_index(Fbuf, plane, y0, x0, second, w, w,
+                                        ha, wa)]
+                _put_blocks(Fbuf, plane, y0, x0, second,
+                            (cur + pred + 1) >> 1, ha, wa)
+            mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd)
+
+        with record_function("vp9.intra"):
+            counts = [int(m[3]) for m in miscs]
+            if max(counts):
+                chunk_bs = [layout.view(f, "chunk_bs") for f in flats]
+                chunks = seg("intra", max(counts)).transpose(0, 1
+                                                             ).contiguous()
+                cbs_d = seg("chunk_bs", max(counts))
+                Rs = Rbuf[:-1].view(3 * A, ha, wa)
+                off = poff.repeat_interleave(ich, 1).reshape(-1)
+                for i in range(max(counts)):
+                    codes = sorted({int(chunk_bs[k][i]) for k in range(A)
+                                    if i < counts[k]})
+                    u = chunks[i].reshape(-1, 4)
+                    for c in codes:
+                        keep = None if len(codes) == 1 else (
+                            cbs_d[:, i, None] == c).expand(A, ich).reshape(-1)
+                        intra_chunk(Fbuf, Rs, u, 4 << c, bd, off, keep)
+
+        with record_function("vp9.loopfilter"):
+            lf_frames(F, seg("lfm", dtype=torch.int16),
+                      seg("lf_thr", dtype=torch.int16),
+                      [int(m[4]) for m in miscs], mi_rows=mi_rows,
+                      mi_cols=mi_cols, bd=bd)
+
+        with record_function("vp9.refresh"):
+            if refresh:
+                nr = len(refresh)
+                pool_s[aux_d[A:A + nr]] = F[aux_d[A + nr:]]
+            out = torch.cat([F[:, 0].reshape(A, -1),
+                             F[:, 1, :hc, :wc].reshape(A, -1),
+                             F[:, 2, :hc, :wc].reshape(A, -1)], 1)
+            # every stream of a round writes the round's ring slot
+            ring[act_d, int(miscs[0][13])] = out.to(ring.dtype)
+
+    return step
+
+
+def get_batched_step(n_streams: int, mi_rows: int, mi_cols: int,
+                     lossless: bool = False, bd: int = 8,
+                     tier: str = "wide"):
+    """(step, caps, layout) of the batched step for N same-geometry 4:2:0
+    streams at one capacity tier ("tight" or "wide", as
+    fused.get_batched_step; or "full", for rounds of intra-only frames
+    that overflow the wide tier, which JAX decodes on its host oracle).
+    The tight and wide tiers pin the 64-unit intra chunk, so that a tight
+    flat escalates to the wide layout by a prefix copy per segment.
+    Uncached, as get_frame_step."""
+    caps = pack.compute_caps(mi_rows, mi_cols, tier, lossless)
+    if tier != "full":
+        caps["intra_chunk"] = pack.CHUNK_INTRA
+    layout = pack.build_layout(caps, mi_rows, mi_cols, lossless, bd)
+    return (make_batched_step(n_streams, mi_rows, mi_cols, layout, bd,
+                              lossless), caps, layout)
 
 
 def ring_dtype(bd: int) -> torch.dtype:

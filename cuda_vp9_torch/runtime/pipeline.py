@@ -21,11 +21,11 @@ references, kept across frames until a keyframe changes it, or the bit
 depth or chroma format changes.
 
 The slice: bit depths 8, 10 and 12; chroma 4:2:0, 4:4:4 and 4:2:2;
-scaled references with 4:2:0 chroma.  4:2:0 frames pack with the C++
-packer, the others with `runtime/pack.pack_frame`, as in JAX.  Frames
-outside the slice (lossless, 4:4:0, scaled references with other chroma)
-raise NotImplementedError naming the ROADMAP item, where JAX sends the
-last two to its host oracle; they never go to the host here.  The flat
+lossless frames; scaled references with 4:2:0 chroma.  4:2:0 frames pack
+with the C++ packer, the others with `runtime/pack.pack_frame`, as in
+JAX.  Frames outside the slice (4:4:0, scaled references with other
+chroma) raise NotImplementedError naming the ROADMAP item, where JAX
+sends them to its host oracle; they never go to the host here.  The flat
 ships dense: page compaction (`TpuReconFused._compact`) is not ported.
 """
 
@@ -173,8 +173,7 @@ class TorchRecon:
 
     def __call__(self, plan, refs):
         hdr = plan.hdr
-        fused.require_slice(bool(hdr.lossless),
-                            (hdr.subsampling_x, hdr.subsampling_y),
+        fused.require_slice((hdr.subsampling_x, hdr.subsampling_y),
                             self._scaled(hdr, refs))
         planes = None
         if self._can_run_on_device(hdr, refs):

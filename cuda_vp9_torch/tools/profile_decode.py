@@ -2,7 +2,7 @@
 
 Usage:
   python -m cuda_vp9_torch.tools.profile_decode in.ivf [--frames N]
-         [--device cuda] [--profile-frames K]
+         [--device cuda] [--profile-frames K] [--streams S]
 
 Decodes the stream once to warm up (kernel build, allocator, cached
 steps), then:
@@ -17,6 +17,10 @@ steps), then:
     wall time of the profiled pass, which the profiler itself slows),
     and the kernels with the most device time.  Keep K small: reading
     back a profile costs seconds per hundred thousand launches.
+
+With --streams S > 1 every pass decodes S copies of the stream in
+lockstep through BatchedTorchDecoder (runtime/multistream.py), whose
+batched step has the same spans; rates are aggregate over the copies.
 """
 
 from __future__ import annotations
@@ -37,10 +41,13 @@ from ..utils.md5 import frame_md5
 from ..runtime import fused
 
 
-def decode(path: str, device: str, limit: int = 0):
+def decode(path: str, device: str, limit: int = 0, streams: int = 1):
     """Decode up to `limit` frames (0 = all) through the codec API with
-    vp9_dx_torch(device) and read each one back.  Returns (per-frame
-    MD5s, the TorchRecon with its frame counts)."""
+    vp9_dx_torch(device), or `streams` copies of them through
+    BatchedTorchDecoder, and read each one back.  Returns (per-frame
+    MD5s, the recon or decoder with its frame counts)."""
+    if streams > 1:
+        return _decode_batched(path, device, limit, streams)
     ctx = CodecCtx()
     if vpx_codec_dec_init(ctx, vp9_dx_torch(device), DecCfg()) != 0:
         raise RuntimeError(f"decoder init failed: {ctx.err_detail}")
@@ -60,7 +67,15 @@ def decode(path: str, device: str, limit: int = 0):
     return md5s, recon
 
 
-def stage_clock(path, device, limit):
+def _decode_batched(path, device, limit, streams):
+    from .multistream_bench import run_batched
+    with open_video(path) as r:
+        packets = [d for d, _ in r][:limit or None]
+    md5s, dec = run_batched([packets] * streams, device)
+    return sum(md5s, []), dec
+
+
+def stage_clock(path, device, limit, streams=1):
     """(frames, wall seconds, {span: seconds}) of one decode with the
     device synchronised at every span edge."""
     cuda = torch.device(device).type == "cuda"
@@ -82,14 +97,14 @@ def stage_clock(path, device, limit):
     fused.record_function = clock
     try:
         t0 = time.perf_counter()
-        n = len(decode(path, device, limit)[0])
+        n = len(decode(path, device, limit, streams)[0])
         wall = time.perf_counter() - t0
     finally:
         fused.record_function = span
     return n, wall, spent
 
 
-def kernel_profile(path, device, k):
+def kernel_profile(path, device, k, streams=1):
     """Print launches, kernel time and busy share over the first k
     frames under torch.profiler."""
     from torch.autograd import DeviceType
@@ -97,7 +112,7 @@ def kernel_profile(path, device, k):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        n = len(decode(path, device, k)[0])
+        n = len(decode(path, device, k, streams)[0])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
@@ -123,10 +138,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile-frames", type=int, default=0, metavar="K",
                     help="also profile the first K frames' kernels (CUDA)")
+    ap.add_argument("--streams", type=int, default=1, metavar="S",
+                    help="decode S copies in lockstep (BatchedTorchDecoder)")
     args = ap.parse_args(argv)
 
-    decode(args.input, args.device, args.frames)
-    n, wall, spent = stage_clock(args.input, args.device, args.frames)
+    decode(args.input, args.device, args.frames, args.streams)
+    n, wall, spent = stage_clock(args.input, args.device, args.frames,
+                                 args.streams)
     print(f"{args.input}: {n} frames, {wall:.3f} s with a stage clock "
           f"({n / wall:.2f} fps), device {args.device}")
     for name, s in spent.items():
@@ -135,7 +153,8 @@ def main(argv=None):
     print(f"  {'outside step':16s} {rest * 1e3:10.1f} ms  {rest / wall:6.1%}"
           "  (parse, pack, read-back)")
     if args.profile_frames:
-        kernel_profile(args.input, args.device, args.profile_frames)
+        kernel_profile(args.input, args.device, args.profile_frames,
+                       args.streams)
     return 0
 
 

@@ -6,15 +6,15 @@ The streams cover what the port runs: keyframes (kf02, mn02), inter
 frames (in01), compound prediction with scaled references (cp01),
 inter frames made of intra blocks (dn01), inter frames that overflow
 the tight tier and escalate to the wide one (io01), 10- and 12-bit
-4:2:0 (p2_01, p2_02, p2_04), 4:4:4 at 8 and 10 bits (p1_01, p3_01) and
-4:2:2 (p1_02, p1_04).  Each high-bit-depth or non-4:2:0 stream is decoded
-up to its first frame with the loop filter on, or its first inter frame.
-Frames outside the port (lossless, 4:4:0, scaled references with
-chroma other than 4:2:0) raise NotImplementedError naming their ROADMAP
-item.  A subprocess decodes kf02 and p2_01 through
-`python -m cuda_vp9_torch.tools.vpxdec` with `jax` and `cuda_vp9_tpu`
-blocked, as on a machine without them.  The 1080p 10-bit stream hb01 is
-decoded (frame 0) in the slow tier."""
+4:2:0 (p2_01, p2_02, p2_04), 4:4:4 at 8 and 10 bits (p1_01, p3_01),
+4:2:2 (p1_02, p1_04) and lossless frames (ll01 intra, ll02 inter: the
+WHT).  Each high-bit-depth or non-4:2:0 stream is decoded up to its first
+frame with the loop filter on, or its first inter frame.  Frames outside
+the port (4:4:0, scaled references with chroma other than 4:2:0) raise
+NotImplementedError naming their ROADMAP item.  A subprocess decodes
+kf02 and p2_01 through `python -m cuda_vp9_torch.tools.vpxdec` with `jax`
+and `cuda_vp9_tpu` blocked, as on a machine without them.  The 1080p
+10-bit stream hb01 is decoded (frame 0) in the slow tier."""
 
 import os
 import subprocess
@@ -45,7 +45,8 @@ STREAMS = [("kf02_176x144", 5), ("mn02_32x24", 6), ("in01_176x144", 4),
            ("p2_01_176x144_10b", 2), ("p2_02_176x144_12b", 1),
            ("p2_04_176x144_12b_inter", 2), ("p3_01_176x144_444_10b", 5),
            ("p1_01_176x144_444", 5), ("p1_02_176x144_422", 2),
-           ("p1_04_176x144_422_long", 2)]
+           ("p1_04_176x144_422_long", 2), ("ll01_176x144_lossless", 6),
+           ("ll02_96x64_lossless_inter", 8)]
 
 
 def _golden(name):
@@ -61,6 +62,8 @@ def test_torch_recon_md5(name, n):
         str(FIXTURES / f"{name}.ivf"), max_frames=n, recon_fn=rec, lag=0)]
     assert got == golden[:n]
     assert rec.frames_on_host == 0 and rec.frames_on_device >= n - 1
+    if name.startswith("ll"):
+        assert rec.frames_on_device == n
     if name.startswith("io01"):
         assert rec.frames_wide > 0, "no frame escalated to the wide tier"
 
@@ -75,16 +78,14 @@ def _scaled_refs(hdr):
 
 
 @pytest.mark.parametrize("name,n,patch,item", [
-    ("ll01_176x144_lossless", 1, None, "item 7"),
-    ("ll02_96x64_lossless_inter", 1, None, "item 7"),
     ("p1_01_176x144_444", 1, _as_440, "item 9"),
     ("p1_01_176x144_444", 2, _scaled_refs, "item 8")],
-    ids=["ll01", "ll02", "440", "scaled_444"])
+    ids=["440", "scaled_444"])
 def test_frames_outside_the_slice_raise(name, n, patch, item):
-    """Lossless frames, 4:4:0 chroma and scaled references with chroma
-    other than 4:2:0 raise, naming their ROADMAP item, and never go to the
-    host.  No fixture is 4:4:0 or scales a 4:4:4 reference, so those two
-    cases change the header of p1_01 (8-bit 4:4:4) after the parse."""
+    """4:4:0 chroma and scaled references with chroma other than 4:2:0
+    raise, naming their ROADMAP item, and never go to the host.  No
+    fixture is 4:4:0 or scales a 4:4:4 reference, so both cases change
+    the header of p1_01 (8-bit 4:4:4) after the parse."""
     rec = TorchRecon("cpu")
 
     def recon_fn(plan, refs):

@@ -268,7 +268,7 @@ def test_kernel_repeated_runs_and_workspace_reuse_on_card(monkeypatch):
     want2 = LF.lf_frame_plain(torch.from_numpy(F2).to(dev), *args2, 1, **kw)
     ws = torch.full((1 + F.shape[1] // 64,), 1 << 30, dtype=torch.int32,
                     device=dev)
-    monkeypatch.setattr(LF, "workspace", lambda F: ws)
+    monkeypatch.setattr(LF, "workspace", lambda F, frames=1: ws)
     a = LF.lf_frame(Fd.clone(), *args, 1, **kw)
     b = LF.lf_frame(torch.from_numpy(F2).to(dev), *args2, 1, **kw)
     assert torch.equal(a, want) and torch.equal(b, want2)

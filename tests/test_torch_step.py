@@ -10,8 +10,9 @@ ring after the step must be equal byte for byte.
   * kf01_64x64 frame 0 (full tier, keyframe from an empty pool).  A cold
     XLA:CPU compile of this step takes about 90 s; the persistent cache
     (utils/jaxcache) keeps later runs short.
-  * frame 0 of p2_01 (10-bit 4:2:0) and of p3_01 (10-bit 4:4:4), each in
-    a fresh subprocess (the JAX step has crashed in-process at 10 bits:
+  * frame 0 of p2_01 (10-bit 4:2:0), of p3_01 (10-bit 4:4:4) and of ll01
+    (lossless: the WHT on bucket tx0, the only bucket of its layout), each
+    in a fresh subprocess (the JAX step has crashed in-process at 10 bits:
     ROADMAP fault F1) and marked slow: each compiles a JAX step cold.
   * in01_176x144 frame 1 (tight tier, inter), starting from the state
     that JAX TpuReconFused left after frame 0, carried over by
@@ -80,10 +81,11 @@ def compare_keyframe_step(name):
     def recon_fn(plan, refs):
         h = plan.hdr
         bd, ss = h.bit_depth, (h.subsampling_x, h.subsampling_y)
+        lossless = bool(h.lossless)
         jstep, caps, layout = JF.get_frame_step(h.mi_rows, h.mi_cols, "full",
-                                                False, bd=bd, ss=ss)
+                                                lossless, bd=bd, ss=ss)
         step, tcaps, tlayout = TF.get_frame_step(h.mi_rows, h.mi_cols,
-                                                 "full", False, bd, ss)
+                                                 "full", lossless, bd, ss)
         assert tcaps == caps and tlayout.segs == layout.segs
         if ss == (1, 1):
             flat = plan.native_parser.pack(plan, refs, tcaps, tlayout)
@@ -113,12 +115,7 @@ def test_keyframe_step_matches_jax():
     compare_keyframe_step("kf01_64x64")
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("name", ["p2_01_176x144_10b",
-                                  "p3_01_176x144_444_10b"])
-def test_keyframe_step_matches_jax_high_bitdepth(name):
-    """Slow: a fresh process compiles the JAX step cold (fault F1 keeps
-    10-bit JAX steps out of the test process)."""
+def _compare_in_subprocess(name):
     tests = Path(__file__).resolve().parent
     r = subprocess.run(
         [sys.executable, "-c", "import test_torch_step as t; "
@@ -128,6 +125,22 @@ def test_keyframe_step_matches_jax_high_bitdepth(name):
              "PYTHONPATH": os.pathsep.join(
                  [str(tests.parent), os.environ.get("PYTHONPATH", "")])})
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["p2_01_176x144_10b",
+                                  "p3_01_176x144_444_10b"])
+def test_keyframe_step_matches_jax_high_bitdepth(name):
+    """Slow: a fresh process compiles the JAX step cold (fault F1 keeps
+    10-bit JAX steps out of the test process)."""
+    _compare_in_subprocess(name)
+
+
+@pytest.mark.slow
+def test_lossless_keyframe_step_matches_jax():
+    """Slow: frame 0 of ll01 through the lossless steps, in a fresh
+    process as above."""
+    _compare_in_subprocess("ll01_176x144_lossless")
 
 
 @pytest.mark.slow

@@ -1,6 +1,10 @@
 """The port's inverse transforms (cuda_vp9_torch/ops/transforms.py) against
 the JAX step's own calls of the shared reference, bit for bit.
 
+The lossless WHT (`inv_wht2d`) is held against the reference twice: in
+NumPy (int64) and as the JAX step calls it (`xp=jnp`,
+`work_dtype=jnp.int32`), at bit depths 8, 10 and 12.
+
 runtime/fused._residual_pass runs `T.inv_txfm2d` (32x32) and
 `T.inv_txfm2d_select` (4..16, per-unit tx_type) with xp=jnp and
 work_dtype=jnp.int16 at bd 8 (the int16 WRAPLOW domain) and
@@ -103,3 +107,21 @@ def test_inv_txfm2d_select_int32_matches_jax(bd, tx_size):
         got = TT.inv_txfm2d_select(torch.from_numpy(c), tx_size,
                                    torch.from_numpy(tt), bd)
         assert np.array_equal(got.numpy(), want), f"extreme={extreme}"
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_inv_wht2d_matches_reference(bd):
+    """Lossless units: coefficients up to the bd + 8-bit range (int16 at
+    bd 8, as the wire ships them), dense and sparse."""
+    rng = np.random.default_rng(600 + bd)
+    lim = 1 << (bd + 7)
+    c = rng.integers(-lim, lim, (256, 16))
+    c[128:] *= rng.random((128, 16)) < 0.3
+    c = c.astype(np.int16 if bd == 8 else np.int32)
+    got = TT.inv_wht2d(torch.from_numpy(c), bd)
+    assert got.dtype == torch.int32 and got.shape == (256, 4, 4)
+    want_np = T.inv_wht2d(c, bd)
+    want_jnp = np.asarray(T.inv_wht2d(jnp.asarray(c), bd, xp=jnp,
+                                      work_dtype=jnp.int32))
+    assert np.array_equal(got.numpy(), want_np)
+    assert np.array_equal(got.numpy(), want_jnp)
