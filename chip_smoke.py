@@ -25,6 +25,19 @@ Phases, each of which exits non-zero on failure:
          untouched);
        - the tile probe at [200, 200] against tile_probe_plain and the
          probe's NumPy reference;
+       - the intra kernel (K4) against intra_pass_plain on the inputs of
+         tools/kernel_cases.py (every block size 4 to 32, all 10 modes,
+         partial availability, the three tl_modes, units on and across
+         the right and bottom edges, padded records) at bit depths 8, 10
+         and 12 on a 64x64 canvas and at 10 bits on the 1920x1088 canvas
+         with 256-unit chunks, and its batched form on 4 stacked frames
+         whose chunk index i mixes block sizes, against
+         intra_pass_batched_plain; one host call per pass, one grid per
+         chunk;
+       - the residual kernel (K2) against its plain twin on every bucket
+         of pack.COEFF_BUCKETS, the WHT and (8 bits) the two coo buckets,
+         at bit depths 8, 10 and 12, with moderate and extreme inputs and
+         padded records, for one stream and for three in one call;
   3. run the frame step once at one 64x64 superblock (fused.entry);
   4. the main paths, each with the kernel counts set to 0 just before it
      and read just after:
@@ -33,11 +46,14 @@ Phases, each of which exits non-zero on failure:
          scaled references), the 10- and 12-bit streams p2_01, p2_02 and
          p2_04, the 4:4:4 streams p3_01 (10-bit) and p1_01, the 4:2:2
          streams p1_02 and p1_04, hb01 (1080p 10-bit), and the lossless
-         streams ll01 and ll02 (filter level 0 throughout).  Every frame's
-         MD5 must equal the golden file and every frame must run on the
-         device; the loop-filter kernel must have launched on every
-         stream with a filter level, the 4:2:2 chroma kernel on p1_02 and
-         p1_04, and neither plain version ever;
+         streams ll01 and ll02 (filter level 0 throughout), and xl01
+         (3840x2176).  Every frame's MD5 must equal the golden file and
+         every frame must run on the device; the loop-filter kernel must
+         have launched on every stream with a filter level, the 4:2:2
+         chroma kernel on p1_02 and p1_04, the intra and the residual
+         kernels on every stream (each starts with a keyframe), the intra
+         kernel from at most one host call per frame, and no plain
+         version ever;
        - the tile probe through its entry point (tools/tile_probe.py),
          checked against the probe's NumPy reference;
        - the multi-stream decoders (runtime/multistream.py), each run on
@@ -50,12 +66,16 @@ Phases, each of which exits non-zero on failure:
          device (on in02 + sc01: as many on the host as a TorchRecon gives
          sc01 alone), and when every frame joined the batch the loop
          filter must have launched once per round with a level, as the
-         port's parser reads the headers;
-  5. time a second, warm decode of nc03, hd01, cp01 and hb01, and of 16 x
-     nc03 through BatchedTorchDecoder (aggregate fps), and each kernel
-     against its plain version (CUDA events); each timed run of the loop
-     filter is also held against the plain result, and lf_frames on 16
-     640x384 frames is timed beside 16 lf_frame calls.
+         port's parser reads the headers, and the intra kernel from at
+         most one host call per round; no plain version ever;
+  5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
+     16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
+     kernel against its plain version (CUDA events): the intra and the
+     residual kernels on hd01's keyframe as the frame step feeds them
+     (its residual buckets, then its 2703 intra chunks), beside the gap
+     of one dependent empty launch; each timed run of the loop filter is
+     also held against the plain result, and lf_frames on 16 640x384
+     frames is timed beside 16 lf_frame calls.
 
 The last two lines are a JSON record of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without
@@ -87,9 +107,10 @@ STREAMS = (("nc03_640x360_occl", 12, True), ("hd01_1920x1080_t4", 4, True),
            ("p1_04_176x144_422_long", 10, True),
            ("large/hb01_1920x1080_10b", 3, False),
            ("ll01_176x144_lossless", 6, False),
-           ("ll02_96x64_lossless_inter", 8, False))
+           ("ll02_96x64_lossless_inter", 8, False),
+           ("xl01_3840x2176_t4", 6, False))
 WARM = ("nc03_640x360_occl", "hd01_1920x1080_t4", "cp01_352x288_compound",
-        "large/hb01_1920x1080_10b")
+        "large/hb01_1920x1080_10b", "xl01_3840x2176_t4")
 LF_SHAPES = ((8, 8), (135, 240))      # mi grids: 64x64 and 1920x1088 canvas
 # 4:2:2 mi grids: p1_04's 176x144 (chroma 88x144) and 1920x1088 (chroma
 # 960x1088)
@@ -100,7 +121,12 @@ NC03_BATCH = ("nc03_640x360_occl",) * 16
 MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
 RESIZE = ("in02_352x288", "sc01_352x288_scaled")
 MSD = ("kf01_64x64", "kf03_odd_98x66")
-KERNELS = ("loopfilter", "tileprobe")
+KERNELS = ("loopfilter", "tileprobe", "intra", "residual")
+# intra kernel cases: (bd, ha, wa, ich, block size code of planes 0..2)
+INTRA_CASES = [(bd, 64, 64, 64, codes) for bd in (8, 10, 12)
+               for codes in ((0, 1, 2), (3, 2, 1))] + [
+                   (10, 1088, 1920, 256, (0, 3, 1))]
+KEYFRAME = "hd01_1920x1080_t4"        # the timed intra and residual inputs
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor float32 rate; the
                                 # table has no int32 rate, so it stands in
@@ -291,6 +317,128 @@ def probe_bound_ms(frame, masks, coords):
                  n * 64 * 4)
 
 
+# int32 operations per predicted pixel of csrc/intra.cu, counted on its
+# heaviest modes: the predictor's taps and rounding (6), the residual add
+# and the clip (3), the write's bounds test (3)
+INTRA_PIXEL_OPS = 12
+
+
+def intra_bound_ms(chunks, chunk_bs, n_chunks):
+    """(bound ms, "bytes" or "operations") of one intra pass: per record
+    read (8 bytes); per unit that is not padding its above row, left
+    column and top-left (3 bs + 1 int32) and its residual (bs^2 int32)
+    read once and its pixels (bs^2 int32) written once, against
+    INTRA_PIXEL_OPS per pixel."""
+    rec = np.asarray(chunks[:n_chunks])
+    bs = (4 << (np.asarray(chunk_bs[:n_chunks]).astype(np.int64) & 3))
+    live = (rec[:, :, 1].astype(np.int64) & 0x7FFF) != 0
+    bs_u = np.broadcast_to(bs[:, None], live.shape)[live]
+    px = int((bs_u * bs_u).sum())
+    return bound(rec.size * 2 + 4 * int((3 * bs_u + 1).sum()) + 8 * px,
+                 px * INTRA_PIXEL_OPS)
+
+
+class _OpCount:
+    """An operand of the reference's 1-D butterflies that counts the int32
+    operations done on it."""
+    ops = 0
+
+    def _op(self, *_):
+        _OpCount.ops += 1
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+    __rshift__ = __neg__ = _op
+
+
+class _OpDomain:
+    """The WRAPLOW domain of csrc/residual.cu: a wrap is two shifts, a
+    round shift an add, a shift and a wrap."""
+
+    @staticmethod
+    def w(x):
+        return x
+
+    @staticmethod
+    def n(x):
+        _OpCount.ops += 2
+        return x
+
+    def rs(self, x):
+        _OpCount.ops += 2
+        return self.n(x)
+
+
+class _OpRows:
+    def __getitem__(self, k):
+        return _OpCount()
+
+
+def _ops_1d(tx, adst):
+    """int32 operations of one 1-D pass of size 4 << tx (the WHT's when
+    adst is "wht")."""
+    from cuda_vp9_torch.ops.ref import transforms as T
+
+    class XP:
+        @staticmethod
+        def stack(xs, axis):
+            return xs
+
+    _OpCount.ops = 0
+    if adst == "wht":
+        return 4 + 10 + 2 * 4           # input shift, the butterfly, wraps
+    T._1D[(tx, int(adst))](_OpRows(), _OpDomain(), lambda x: x, XP)
+    return _OpCount.ops
+
+
+def residual_work(buckets, bd):
+    """(bytes, operations) of the residual kernel's launches on these
+    buckets [(tx, coef, pos, kind), ...] (host int16 arrays of one
+    stream): each record's coefficient words (twice above 8 bits) and
+    cpos read once, each unit that is not padding written once (n^2
+    int32); its expansion (one op a coefficient), the row and column
+    passes its tx_type selects, and the final round shift (2 ops a
+    pixel)."""
+    nbytes = ops = 0
+    for tx, coef, pos, kind in buckets:
+        n = 4 << tx
+        pos = np.asarray(pos).reshape(-1, 4)
+        live = pos[:, 1] != 0
+        nbytes += coef.size * 2 * (2 if bd > 8 and kind != 2 else 1) \
+            + pos.size * 2 + int(live.sum()) * n * n * 4
+        ops += coef.size
+        tt = pos[live, 3].astype(np.int64) & 3
+        if kind == 1:
+            ops += int(live.sum()) * 2 * n * _ops_1d(0, "wht")
+            continue
+        for t in range(4):
+            cnt = int((tt == t).sum())
+            row = _ops_1d(tx, tx < 3 and bool(t & 2))
+            col = _ops_1d(tx, tx < 3 and bool(t & 1))
+            ops += cnt * (n * (row + col) + 2 * n * n)
+    return nbytes, ops
+
+
+def keyframe_flat(name):
+    """(flat, layout, mi_rows, mi_cols) of frame 0 of a fixture, packed by
+    the port's native packer at the full tier, as TorchRecon packs it;
+    the frame itself is decoded by a TorchRecon on the card."""
+    from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
+    from cuda_vp9_torch.runtime import fused
+    from cuda_vp9_torch.runtime.pipeline import TorchRecon
+    recon, out = TorchRecon("cuda"), {}
+
+    def recon_fn(plan, refs):
+        h = plan.hdr
+        _, caps, layout = fused.get_frame_step(h.mi_rows, h.mi_cols, "full")
+        out.update(flat=plan.native_parser.pack(plan, refs, caps, layout),
+                   layout=layout, mi=(h.mi_rows, h.mi_cols))
+        return recon(plan, refs)
+
+    NativeVp9Decoder(recon_fn=recon_fn).decode(packets(name)[0])
+    return out["flat"], out["layout"], *out["mi"]
+
+
 def cuda_ms(fn, reps: int, setup=None, after=None) -> float:
     """Median milliseconds of fn(x) over reps runs, CUDA events; x =
     setup() is made outside the timed window, and after(x), if given, is
@@ -363,11 +511,12 @@ def batched(names, rounds=None):
     return md5s, bd, time.perf_counter() - t0
 
 
-def multi_stream_paths(LF, L4, TP):
+def multi_stream_paths(LF, counted):
     """Phase 4c: BatchedTorchDecoder on 16 x nc03, the 48-round mix and
-    in02 + sc01, then MultiStreamDecoder, each with the kernel counts set
-    to 0 before it; exits on a failed check.  Returns the stream-axis
-    kernel's launches on 16 x nc03."""
+    in02 + sc01, then MultiStreamDecoder, each with the kernel counts (of
+    the modules `counted`, LF among them) set to 0 before it; exits on a
+    failed check.  Returns the stream-axis kernel's launches on 16 x
+    nc03."""
     from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
     from cuda_vp9_torch.runtime.multistream import MultiStreamDecoder
     from cuda_vp9_torch.runtime.pipeline import TorchRecon
@@ -376,10 +525,10 @@ def multi_stream_paths(LF, L4, TP):
     for label, names, rounds in (("16 x nc03", NC03_BATCH, None),
                                  ("lg01 + in01 + kf02", MIX, None),
                                  ("in02 + sc01", RESIZE, 6)):
-        LF.reset_counts()
-        L4.reset_counts()
-        TP.reset_counts()
+        for k in counted:
+            k.reset_counts()
         md5s, bd, dt = batched(names, rounds)
+        _, _, _, IN, RS = counted
         st = bd.stats()
         unbatched = sum(r["unbatched"] for r in st)
         n_frames = sum(len(m) for m in md5s)
@@ -392,12 +541,19 @@ def multi_stream_paths(LF, L4, TP):
               f"{sum(r['device'] for r in st)}, on host "
               f"{sum(r['host'] for r in st)}, frames_unbatched {unbatched}, "
               f"lf_frames launches {LF.launches} (rounds with a level: "
-              f"{want}), plain calls {LF.plain_calls}, cold {dt:.2f} s "
+              f"{want}), intra grids {IN.launches} in {IN.host_calls} host "
+              f"calls, residual launches {RS.launches}, plain calls "
+              f"{[k.plain_calls for k in counted]}, cold {dt:.2f} s "
               f"({dt / max(bd.rounds, 1):.3f} s a round)")
-        if bad or LF.plain_calls or L4.plain_calls or any(
+        if bad or any(k.plain_calls for k in counted) or any(
                 len(m) != len(golden_md5(n)[:rounds]) for n, m in zip(
                     names, md5s)):
             raise SystemExit(f"batched {label}: decode check failed")
+        if not IN.launches or not RS.launches \
+                or not 0 < IN.host_calls <= bd.rounds + unbatched:
+            raise SystemExit(f"batched {label}: the intra or residual "
+                             "kernel never ran, or intra took more than one "
+                             "host call a round")
         if names is RESIZE:
             alone = TorchRecon("cuda")
             dec = NativeVp9Decoder(recon_fn=alone)
@@ -416,7 +572,8 @@ def multi_stream_paths(LF, L4, TP):
                              "round with a level")
         if names is NC03_BATCH:
             lfs_launches = LF.launches
-    LF.reset_counts()
+    for k in counted:
+        k.reset_counts()
     msd = MultiStreamDecoder(len(MSD), lag=2)
     pk = [packets(n) for n in MSD]
     got = [[] for _ in MSD]
@@ -431,21 +588,236 @@ def multi_stream_paths(LF, L4, TP):
     print(f"MultiStreamDecoder {' + '.join(MSD)}: stats {msd.stats()}, "
           f"MD5 equal {[g == golden_md5(n) for g, n in zip(got, MSD)]}")
     if any(g != golden_md5(n) for g, n in zip(got, MSD)) \
-            or any(st["host"] for st in msd.stats()):
+            or any(st["host"] for st in msd.stats()) \
+            or any(k.plain_calls for k in counted):
         raise SystemExit("MultiStreamDecoder: decode check failed")
     return lfs_launches
 
 
+def frame_buf(dev, F):
+    """A frame buffer (runtime/fused.frame_buffer) on dev holding F."""
+    buf = torch.zeros(F.size + 1, dtype=torch.int32)
+    buf[:-1] = torch.from_numpy(F).reshape(-1)
+    return buf.to(dev)
+
+
+def intra_vs_plain(rng, dev, IN, KC) -> int:
+    """Phase 2: the intra kernel against intra_pass_plain on every case of
+    INTRA_CASES, and its batched form against intra_pass_batched_plain on
+    4 stacked 64x64 frames at bit depths 8, 10 and 12; each pass one host
+    call and one grid per chunk.  Exits on a difference; returns the
+    largest error (0)."""
+    for bd, ha, wa, ich, codes in INTRA_CASES:
+        F, R, rec, cbs = KC.intra_frame(rng, ha, wa, bd, ich, codes)
+        Fk = frame_buf(dev, F)
+        Fp = Fk.clone()
+        Rt, rt = torch.from_numpy(R).to(dev), torch.from_numpy(rec).to(dev)
+        grids, calls = IN.launches, IN.host_calls
+        IN.intra_pass(Fk, Rt, rt, cbs, len(cbs), bd)
+        grids, calls = IN.launches - grids, IN.host_calls - calls
+        IN.intra_pass_plain(Fp, Rt, rt, cbs, len(cbs), bd)
+        torch.cuda.synchronize()
+        err = int((Fk[:-1] - Fp[:-1]).abs().max())
+        changed = int((Fp != frame_buf(dev, F)).sum())
+        what = f"{ha}x{wa} bd {bd} block sizes {[4 << c for c in codes]}"
+        print(f"intra kernel vs plain {what}: {len(cbs)} chunks of {ich}, "
+              f"max_abs_err {err} (tolerance 0), {changed} pixels written, "
+              f"{grids} grids in {calls} host call")
+        if err or not changed or grids != len(cbs) or calls != 1:
+            raise SystemExit(f"intra kernel disagrees at {what}")
+    for bd in (8, 10, 12):
+        F, R, flats, (om, oc, orc, cap) = KC.intra_streams(rng, 4, 64, 64, bd,
+                                                           64)
+        fl = torch.from_numpy(flats).to(dev)
+        args = (fl[:, orc:orc + cap * 64 * 4].view(4, cap, 64, 4),
+                fl[:, oc:oc + cap], fl[:, om + 3], int(flats[:, om + 3].max()),
+                bd)
+        Fk = frame_buf(dev, F)
+        Fp = Fk.clone()
+        Rt = torch.from_numpy(R).to(dev)
+        grids, calls = IN.launches, IN.host_calls
+        IN.intra_pass_batched(Fk, Rt, *args)
+        grids, calls = IN.launches - grids, IN.host_calls - calls
+        IN.intra_pass_batched_plain(Fp, Rt, *args)
+        torch.cuda.synchronize()
+        err = int((Fk[:-1] - Fp[:-1]).abs().max())
+        print(f"intra batched kernel vs plain, 4 x 64x64 bd {bd}, chunk "
+              f"counts {flats[:, om + 3].tolist()}, chunk 0 block sizes "
+              f"{[4 << int(c) for c in flats[:, oc]]}: max_abs_err {err} "
+              f"(tolerance 0), {grids} grids in {calls} host call")
+        if err or grids != args[3] or calls != 1:
+            raise SystemExit(f"intra batched kernel disagrees at bd {bd}")
+    return 0
+
+
+def residual_vs_plain(rng, dev, RS, KC, pack) -> int:
+    """Phase 2: the residual kernel against its plain twin on every bucket,
+    the WHT and (8 bits) the coo buckets, at bit depths 8, 10 and 12,
+    moderate and extreme inputs, one stream and three, on a random
+    residual frame (untouched pixels count).  Exits on a difference;
+    returns the largest error (0)."""
+    ha = wa = 256
+
+    def held(what, streams, kern, plain, *args):
+        R0 = torch.from_numpy(rng.integers(
+            -999, 1000, 3 * streams * ha * wa + 1).astype(np.int32)).to(dev)
+        Rk, Rp = R0.clone(), R0.clone()
+        launches = RS.launches
+        kern(Rk, *args)
+        plain(Rp, *args)
+        torch.cuda.synchronize()
+        err = int((Rk[:-1] - Rp[:-1]).abs().max())
+        if err or not (Rp != R0).any() or RS.launches != launches + 1:
+            raise SystemExit(f"residual kernel disagrees: {what}, max_abs_err "
+                             f"{err}")
+
+    def dev_arrays(*xs):
+        return [None if x is None else torch.from_numpy(x).to(dev)
+                for x in xs]
+
+    cases = [(tx, nc, False) for _, tx, nc in pack.COEFF_BUCKETS]
+    cases.append((0, 16, True))
+    for bd in (8, 10, 12):
+        for streams in (1, 3):
+            n_runs = 0
+            for extreme in (False, True):
+                at = f"bd {bd}, {streams} streams, extreme {extreme}"
+                for tx, ncoef, lossless in cases:
+                    n = 4 << tx
+                    nu = min(400, 9 * (ha // n) * (wa // n) // 4)
+                    held(f"tx {tx} ncoef {ncoef} lossless {lossless}, {at}",
+                         streams, RS.residual_bucket,
+                         RS.residual_bucket_plain,
+                         *dev_arrays(*KC.residual_bucket_case(
+                             rng, streams, nu, tx, ncoef, bd, ha, wa,
+                             extreme)), tx, ha, wa, bd, lossless)
+                    n_runs += 1
+                for npairs in ((pack.COO_PAIRS, pack.COO16_PAIRS)
+                               if bd == 8 else ()):
+                    held(f"coo {npairs} pairs, {at}", streams,
+                         RS.residual_coo, RS.residual_coo_plain,
+                         *dev_arrays(*KC.residual_coo_case(
+                             rng, streams, 60, npairs, ha, wa, extreme)),
+                         ha, wa)
+                    n_runs += 1
+            print(f"residual kernel vs plain bd {bd}, {streams} stream(s): "
+                  f"{n_runs} buckets (every bucket and the WHT"
+                  f"{', tx3c and tx3cs' if bd == 8 else ''}; moderate and "
+                  f"extreme inputs), max_abs_err 0 (tolerance 0), one "
+                  f"launch each")
+    return 0
+
+
+def keyframe_timings(dev, card, IN, RS, fused):
+    """Phase 5: the residual and the intra kernels against their twins on
+    KEYFRAME's frame 0 as the frame step feeds them (CUDA events): its
+    residual buckets into a zero frame buffer, then its intra chunks on a
+    zero frame with that residual; both results held against the twins'.
+    Also the gap of one dependent empty launch (vp9_empty_launches) and
+    the intra pass's floor, n_chunks gaps.  Returns ((ms, plain_ms, bound,
+    by), (ms, plain_ms, bound, by)) for intra and residual."""
+    import ctypes
+
+    from cuda_vp9_torch.ops.cuda import _build
+    flat, layout, mi_rows, mi_cols = keyframe_flat(KEYFRAME)
+    ha, wa = ((mi_rows + 7) & ~7) * 8, ((mi_cols + 7) & ~7) * 8
+    flat_d = torch.from_numpy(flat).to(dev)
+    misc = layout.view(flat, "misc").astype(np.int64)
+
+    def seg16(name, n):
+        off, shape = layout.segs[name]
+        shape = (n,) + tuple(shape[1:])
+        return flat_d[off:off + int(np.prod(shape))].view(shape)[None]
+
+    def residual(R, plain=False):
+        fused.residual_stage(
+            R, seg16, lambda slot: int(misc[slot]), layout.segs, ha, wa, 8,
+            False, *((RS.residual_bucket_plain, RS.residual_coo_plain)
+                     if plain else ()))
+
+    def zero():
+        return fused.frame_buffer(ha, wa, dev)
+
+    Rk, Rp = zero(), zero()
+    launches = RS.launches
+    residual(Rk)
+    n_res = RS.launches - launches
+    residual(Rp, plain=True)
+    if not torch.equal(Rk, Rp):
+        raise SystemExit(f"{KEYFRAME} keyframe: residual kernel != plain")
+    rs_ms = cuda_ms(residual, 20, zero)
+    rs_plain_ms = cuda_ms(lambda R: residual(R, True), 3, zero)
+    buckets = []
+    for seg, slot, chunk, tx, kind in coeff_buckets():
+        n = int(misc[slot]) * chunk
+        if n and f"coeff_{seg}" in layout.segs:
+            buckets.append((tx, layout.view(flat, f"coeff_{seg}")[:n],
+                            layout.view(flat, f"cpos_{seg}")[:n], kind))
+    rs_bound, rs_by = bound(*residual_work(buckets, 8))
+
+    n_intra = int(misc[3])
+    chunks = seg16("intra", n_intra)[0]
+    cbs = layout.view(flat, "chunk_bs")
+    R = Rk[:-1].view(3, ha, wa)
+    Fk, Fp = zero(), zero()
+    IN.intra_pass(Fk, R, chunks, cbs, n_intra, 8)
+    in_plain_ms = cuda_ms(lambda F: IN.intra_pass_plain(F, R, chunks, cbs,
+                                                        n_intra, 8), 1,
+                          lambda: Fp)
+    if not torch.equal(Fk[:-1], Fp[:-1]):
+        raise SystemExit(f"{KEYFRAME} keyframe: intra kernel != plain")
+    in_ms = cuda_ms(lambda F: IN.intra_pass(F, R, chunks, cbs, n_intra, 8),
+                    20, zero)
+    in_bound, in_by = intra_bound_ms(layout.view(flat, "intra"), cbs,
+                                     n_intra)
+    empty = _build.load("intra").vp9_empty_launches
+    empty.restype = ctypes.c_int
+    empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+
+    def chain(_):
+        if empty(2000, torch.cuda.current_stream().cuda_stream):
+            raise SystemExit("vp9_empty_launches failed")
+
+    chain(None)
+    gap_ms = cuda_ms(chain, 5) / 2000
+    print(f"{KEYFRAME} keyframe residual, {n_res} buckets: kernel "
+          f"{rs_ms:.4f} ms, plain {rs_plain_ms:.3f} ms, bound "
+          f"{rs_bound:.5f} ms ({rs_by}); equal to the plain result [{card}]")
+    print(f"{KEYFRAME} keyframe intra, {n_intra} chunks of "
+          f"{chunks.shape[1]}: kernel {in_ms:.3f} ms ({in_ms / n_intra * 1e3:.2f}"
+          f" us a chunk), plain {in_plain_ms:.1f} ms (one run), bound "
+          f"{in_bound:.5f} ms ({in_by}); one dependent empty launch "
+          f"{gap_ms * 1e3:.3f} us, floor {n_intra} x that = "
+          f"{n_intra * gap_ms:.3f} ms; equal to the plain result [{card}]")
+    return ((in_ms, in_plain_ms, in_bound, in_by),
+            (rs_ms, rs_plain_ms, rs_bound, rs_by))
+
+
+def coeff_buckets():
+    """(segment, misc trip slot, chunk, tx, kind) of every coefficient
+    bucket (kind 0) and of the two coo buckets (kind 2), in the step's
+    order."""
+    from cuda_vp9_torch.runtime import pack
+    return [(name, pack.MISC_TRIP[name], pack.COEFF_CHUNK[name], tx, 0)
+            for name, tx, _ in pack.COEFF_BUCKETS] + [
+                ("tx3c", pack.MISC_TRIP_TX3C, pack.CHUNK_TX3C, 3, 2),
+                ("tx3cs", pack.MISC_TRIP_TX3CS, pack.CHUNK_TX3CS, 3, 2)]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from cuda_vp9_torch.ops.cuda import _build
+    from cuda_vp9_torch.ops.cuda import intra as IN
     from cuda_vp9_torch.ops.cuda import lf422 as L4
     from cuda_vp9_torch.ops.cuda import loopfilter as LF
+    from cuda_vp9_torch.ops.cuda import residual as RS
     from cuda_vp9_torch.ops.cuda import tileprobe as TP
-    from cuda_vp9_torch.runtime import fused
+    from cuda_vp9_torch.runtime import fused, pack
+    from cuda_vp9_torch.tools import kernel_cases as KC
     from cuda_vp9_torch.tools import tile_probe as probe_tool
 
     card = card_line()
@@ -462,6 +834,8 @@ def main() -> int:
     LF._lib()
     L4._lib()
     TP._lib()
+    IN._lib()
+    RS._lib()
     print(f"build {', '.join(k + '.cu' for k in KERNELS)}: "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_build.build_seconds.get(k, 0.0):.2f} s"
@@ -562,6 +936,9 @@ def main() -> int:
     if err or probe_err:
         raise SystemExit("tile-probe kernel disagrees")
 
+    in_err = intra_vs_plain(rng, dev, IN, KC)
+    rs_err = residual_vs_plain(rng, dev, RS, KC, pack)
+
     # 3. the step at one superblock
     step, sargs = fused.entry(dev)
     step(*sargs)
@@ -569,52 +946,64 @@ def main() -> int:
     print("fused.entry: one 64x64 step ran")
 
     # 4a. the decode path through the codec API, counted
-    LF.reset_counts()
-    L4.reset_counts()
-    TP.reset_counts()
+    counted = (LF, L4, TP, IN, RS)
+    for k in counted:
+        k.reset_counts()
     lf_by_stream = {}
     for name, n, filtered in STREAMS:
-        before, before4 = LF.launches, L4.launches
+        before = [(k.launches, getattr(k, "host_calls", 0)) for k in counted]
         md5s, recon, dt = decode(name, n)
-        lf_by_stream[name] = LF.launches - before
-        l4_here = L4.launches - before4
+        (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _) = [
+            (k.launches - b[0], getattr(k, "host_calls", 0) - b[1])
+            for k, b in zip(counted, before)]
+        lf_by_stream[name] = lf_here
         golden = golden_md5(name)[:n]
         bad = [i for i, (a, b) in enumerate(zip(md5s, golden)) if a != b]
         print(f"{name}: {len(md5s)} frames, MD5 mismatches {bad}, "
               f"on device {recon.frames_on_device}, on host "
               f"{recon.frames_on_host}, wide {recon.frames_wide}, "
-              f"lf_frame launches {lf_by_stream[name]}, lf_chroma_422 "
-              f"launches {l4_here}, cold {dt:.2f} s")
+              f"lf_frame launches {lf_here}, lf_chroma_422 launches "
+              f"{l4_here}, intra grids {in_here} in {calls_here} host calls, "
+              f"residual launches {rs_here}, cold {dt:.2f} s")
         if len(md5s) != n or bad or recon.frames_on_device != n \
                 or recon.frames_on_host:
             raise SystemExit(f"{name}: decode check failed")
-        if filtered and not lf_by_stream[name]:
+        if filtered and not lf_here:
             raise SystemExit(f"{name}: the loop-filter kernel never ran")
         if name in LF422_STREAMS and (not l4_here or L4.plain_calls):
             raise SystemExit(f"{name}: the 4:2:2 chroma kernel never ran")
+        if not in_here or not rs_here or not 0 < calls_here <= n \
+                or IN.plain_calls or RS.plain_calls:
+            raise SystemExit(f"{name}: the intra or residual kernel never "
+                             "ran, ran a plain twin, or took more than one "
+                             "host call a frame")
     lf_launches, lf_plain = LF.launches, LF.plain_calls
     l4_launches, l4_plain = L4.launches, L4.plain_calls
+    in_launches, in_calls = IN.launches, IN.host_calls
+    rs_launches = RS.launches
     print(f"decode path: loop-filter kernel launches {lf_launches}, plain "
           f"calls {lf_plain}; 4:2:2 chroma kernel launches {l4_launches}, "
-          f"plain calls {l4_plain}; tile-probe launches {TP.launches}")
+          f"plain calls {l4_plain}; intra kernel grids {in_launches} in "
+          f"{in_calls} host calls, plain calls {IN.plain_calls}; residual "
+          f"kernel launches {rs_launches}, plain calls {RS.plain_calls}; "
+          f"tile-probe launches {TP.launches}")
     if lf_launches == 0 or lf_plain or l4_launches == 0 or l4_plain:
         raise SystemExit("the decode path did not run the loop-filter "
                          "kernels")
 
     # 4b. the tile probe through its entry point, counted
-    LF.reset_counts()
-    L4.reset_counts()
-    TP.reset_counts()
+    for k in counted:
+        k.reset_counts()
     err, _ = probe_tool.run("cuda", check_plain=False)
     probe_launches, probe_plain = TP.launches, TP.plain_calls
     print(f"tile probe path: max_abs_err {err} against the NumPy reference, "
           f"kernel launches {probe_launches}, plain calls {probe_plain}")
     if err or not probe_launches or probe_plain or LF.launches \
-            or L4.launches:
+            or L4.launches or IN.launches or RS.launches:
         raise SystemExit("the tile-probe path failed")
 
     # 4c. the multi-stream decoders, each counted on its own
-    lfs_launches = multi_stream_paths(LF, L4, TP)
+    lfs_launches = multi_stream_paths(LF, counted)
 
     # 5. warm decode rate and kernel timing
     frames = {name: n for name, n, _ in STREAMS}
@@ -633,6 +1022,7 @@ def main() -> int:
           f"{dt:.3f} s = {n_frames / dt:.2f} fps aggregate "
           f"({dt / bd.rounds:.3f} s a round; single-stream nc03 "
           f"{single_fps:.2f} fps in this run) [{card}]")
+    in_row, rs_row = keyframe_timings(dev, card, IN, RS, fused)
     lf_rows = {}
     for bd in (8, 10):
         F, lfm, thr = rand_lf_inputs(rng, *LF_SHAPES[-1], bd)
@@ -750,6 +1140,8 @@ def main() -> int:
           f"({lfs_by}); 40 of 40 timed runs equal the plain result [{card}]")
 
     ms, plain_ms, bound, by = lf_rows[10]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "lf_frame", "route": "cuda",
          "source": "cuda_vp9_torch/csrc/loopfilter.cu",
@@ -774,7 +1166,19 @@ def main() -> int:
          "replaces": "tools/profiling/pallas_probe.py:110",
          "launches": probe_launches, "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": pbound,
-         "bound_by": pby, "library_ms": None}]}))
+         "bound_by": pby, "library_ms": None},
+        {"name": "intra_pass", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/intra.cu",
+         "replaces": "cuda_vp9_tpu/runtime/fused.py:452",
+         "launches": in_launches, "max_abs_err": in_err,
+         "ms": in_row[0], "plain_ms": in_row[1], "bound_ms": in_row[2],
+         "bound_by": in_row[3], "library_ms": None},
+        {"name": "residual", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/residual.cu",
+         "replaces": "cuda_vp9_tpu/runtime/fused.py:44",
+         "launches": rs_launches, "max_abs_err": rs_err,
+         "ms": rs_row[0], "plain_ms": rs_row[1], "bound_ms": rs_row[2],
+         "bound_by": rs_row[3], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

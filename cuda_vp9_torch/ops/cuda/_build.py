@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 OUT = _PKG.parent / "build" / "cuda_vp9_torch"
@@ -61,3 +63,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def call(fn, device, *args) -> int:
+    """fn(*args, stream, &launched) on `device`'s current stream, for the
+    C entry points that report their launches; returns the launch count,
+    and raises on a CUDA error."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream,
+                 ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+    return n.value

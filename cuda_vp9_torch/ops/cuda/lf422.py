@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from . import _build
 from ..device.lf_wave import lf_plane_tiles
 from .loopfilter import workspace
 
@@ -70,8 +71,7 @@ def lf_chroma_422_plain(F, vbits, hbits, mb, lm, hv, lf_on: int, *,
 
 def _lib():
     """The bound C entry point; builds csrc/loopfilter.cu at first use."""
-    from ._build import load
-    fn = load("loopfilter").vp9_lf_plane_tiles
+    fn = _build.load("loopfilter").vp9_lf_plane_tiles
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
@@ -94,15 +94,9 @@ def lf_chroma_422(F, vbits, hbits, mb, lm, hv, lf_on: int, *, bd: int):
     if not lf_on:
         return F
     global launches
-    fn = _lib()
-    n = ctypes.c_int(0)
     ws = workspace(F)
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = fn(F.data_ptr(), vbits.data_ptr(), hbits.data_ptr(),
-                 mb.data_ptr(), lm.data_ptr(), hv.data_ptr(), ws.data_ptr(),
-                 F.shape[1], F.shape[2], bd, stream, ctypes.byref(n))
-    launches += n.value
-    if err:
-        raise RuntimeError(f"vp9_lf_plane_tiles: CUDA error {err}")
+    launches += _build.call(
+        _lib(), F.device, F.data_ptr(), vbits.data_ptr(), hbits.data_ptr(),
+        mb.data_ptr(), lm.data_ptr(), hv.data_ptr(), ws.data_ptr(),
+        F.shape[1], F.shape[2], bd)
     return F

@@ -28,6 +28,8 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _build
+
 launches = 0
 plain_calls = 0
 
@@ -240,8 +242,7 @@ def workspace(F, frames: int = 1):
 
 def _lib():
     """The bound C entry point; builds csrc/loopfilter.cu at first use."""
-    from ._build import load
-    fn = load("loopfilter").vp9_lf_frames
+    fn = _build.load("loopfilter").vp9_lf_frames
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
@@ -275,17 +276,12 @@ def lf_frames(F, lfm, thr, lf_on, *, mi_rows: int, mi_cols: int, bd: int):
         # is the kernel's identity order and needs none
         streams = torch.tensor(on, dtype=torch.int32).pin_memory().to(
             F.device, non_blocking=True)
-    n = ctypes.c_int(0)
     ws = workspace(F, len(on))
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = fn(F.data_ptr(), lfm.data_ptr(), lfm.stride(0), thr.data_ptr(),
-                 thr.stride(0), None if streams is None else
-                 streams.data_ptr(), len(on), ws.data_ptr(), F.shape[2],
-                 F.shape[3], bd, stream, ctypes.byref(n))
-    launches += n.value
-    if err:
-        raise RuntimeError(f"vp9_lf_frames: CUDA error {err}")
+    launches += _build.call(
+        fn, F.device, F.data_ptr(), lfm.data_ptr(), lfm.stride(0),
+        thr.data_ptr(), thr.stride(0),
+        None if streams is None else streams.data_ptr(), len(on),
+        ws.data_ptr(), F.shape[2], F.shape[3], bd)
     return F
 
 

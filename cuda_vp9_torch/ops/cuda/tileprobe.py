@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from . import _build
+
 MAXW = 4        # entries per wave
 TS = 72         # tile side: a 64-pixel superblock and an 8-pixel apron
 
@@ -99,8 +101,7 @@ def tile_probe_plain(frame, coords, masks):
 
 def _lib():
     """The bound C entry point; builds csrc/tileprobe.cu at first use."""
-    from ._build import load
-    fn = load("tileprobe").vp9_tile_probe
+    fn = _build.load("tileprobe").vp9_tile_probe
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
@@ -134,14 +135,7 @@ def tile_probe(frame, coords, masks):
     entries = (ctypes.c_int * max(1, len(flat)))(*flat)
     counts = (ctypes.c_int * len(waves))(*(len(w) for w in waves))
     global launches
-    fn = _lib()
-    n = ctypes.c_int(0)
-    with torch.cuda.device(frame.device):
-        stream = torch.cuda.current_stream(frame.device).cuda_stream
-        err = fn(frame.data_ptr(), frame.shape[1], entries, counts,
-                 len(waves), masks.data_ptr(), masks.shape[1], stream,
-                 ctypes.byref(n))
-    launches += n.value
-    if err:
-        raise RuntimeError(f"vp9_tile_probe: CUDA error {err}")
+    launches += _build.call(_lib(), frame.device, frame.data_ptr(),
+                            frame.shape[1], entries, counts, len(waves),
+                            masks.data_ptr(), masks.shape[1])
     return frame

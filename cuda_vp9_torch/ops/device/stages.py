@@ -3,7 +3,9 @@
 Counterpart of `cuda_vp9_tpu/ops/device/stages.py` (`intra_wave`,
 `_predictors`): one call predicts a batch of same-size units of one wave
 (all 10 VP9 intra modes, closed form), adds the residual, clips, and
-writes the units into the frame.  All arithmetic is int32.
+writes the units into the frame.  All arithmetic is int32.  It is the
+plain twin of the intra kernel (`csrc/intra.cu` via `ops/cuda/intra.py`):
+it runs on CPU tensors, and on the card only where a check compares them.
 
 Torch differs from JAX at the edges, so this version:
   * clamps every gather index into the frame (JAX clamps silently;

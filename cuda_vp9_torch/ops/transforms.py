@@ -3,7 +3,8 @@
 
 Counterpart of `cuda_vp9_tpu/ops/ref/transforms.inv_txfm2d`,
 `inv_txfm2d_select` and `inv_wht2d` as `runtime/fused._residual_pass`
-calls them:
+calls them, and the plain twin of the residual kernel (`csrc/residual.cu`
+via `ops/cuda/residual.py`), which computes the same domains:
 
   * bd 8, `work_dtype=jnp.int16`: the WRAPLOW points are native int16
     arithmetic (adds and subtracts wrap in int16), every product is

@@ -22,6 +22,12 @@ place to keep one copy of the pool on the device):
   intra wavefront, chunk by chunk -> loop filter -> pool refresh
   (misc[5:13]) and ring row misc[13].
 
+On a CUDA pool the residual transforms (`ops/cuda/residual.py`, one
+launch per bucket), the intra wavefront (`ops/cuda/intra.py`, one host
+call per frame that enqueues a grid per chunk) and the loop filter are
+hand-written kernels; MC, the mask add and the refresh are torch ops.
+On a CPU pool each kernel's plain torch twin runs instead.
+
 Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
 transforms run in the int32 WRAPLOW domain; the ring is int16.  The loop
 filter follows the chroma format: 4:2:0 is one `lf_frame` call; 4:4:4
@@ -55,10 +61,11 @@ import torch
 from torch.profiler import record_function
 
 from .. import models as M
-from ..ops import transforms as T
+from ..ops.cuda.intra import intra_pass, intra_pass_batched
 from ..ops.cuda.lf422 import lf_chroma_422
 from ..ops.cuda.loopfilter import lf_frame, lf_frames
-from ..ops.device import stages
+from ..ops.cuda.residual import residual_bucket, residual_coo
+from ..ops.device.blocks import block_index, put_blocks
 from . import pack
 
 I32 = torch.int32
@@ -92,70 +99,6 @@ def frame_buffer(ha: int, wa: int, device) -> torch.Tensor:
     """int32 [3*ha*wa + 1]: a [3, ha, wa] frame plus one trash element
     that padded records write to."""
     return torch.zeros(3 * ha * wa + 1, dtype=I32, device=device)
-
-
-def _block_index(buf, plane, y0, x0, valid, h, w, ha, wa):
-    """Linear indices [N, h, w] of the blocks buf[plane, y0 + i, x0 + j]
-    of a frame buffer (frame_buffer); padded records (valid false) point
-    at the trash element."""
-    dev = buf.device
-    ri = torch.arange(h, device=dev)[None, :, None]
-    rj = torch.arange(w, device=dev)[None, None, :]
-    lin = ((plane.long()[:, None, None] * ha + y0.long()[:, None, None] + ri)
-           * wa + x0.long()[:, None, None] + rj)
-    return torch.where(valid[:, None, None], lin, buf.numel() - 1)
-
-
-def _put_blocks(buf, plane, y0, x0, valid, vals, ha, wa):
-    """buf[plane, y0 + i, x0 + j] = vals[n, i, j] for the valid records;
-    the others write the trash element.  Destinations must be distinct."""
-    lin = _block_index(buf, plane, y0, x0, valid, vals.shape[1],
-                       vals.shape[2], ha, wa)
-    buf.index_put_((lin.reshape(-1),), vals.reshape(-1))
-
-
-# ----------------------------------------------------------------- residual
-
-
-def _scan_table(tx: int, ncoef: int, device) -> torch.Tensor:
-    """[4, ncoef] first-ncoef scan positions per tx_type."""
-    return torch.as_tensor(np.stack(
-        [np.asarray(M.SCAN_ORDERS[tx][t].scan[:ncoef], np.int64)
-         for t in range(4)]), device=device)
-
-
-def residual_units(Rbuf, coeffs, pos, tx: int, ha: int, wa: int,
-                   bd: int = 8, lossless: bool = False):
-    """Inverse-transform N units and write them into the residual frame.
-
-    coeffs [N, n*n] raster order, int16 at bd 8 and int32 above; pos
-    [N, 4] int32 = (plane, y + 1, x, tx_type), y + 1 == 0 marking a padded
-    record (fused.py:44-63).  Lossless units (tx 0) take the WHT."""
-    if lossless:
-        resid = T.inv_wht2d(coeffs, bd)
-    elif tx == 3:
-        resid = T.inv_txfm2d(coeffs, 3, 0, bd)
-    else:
-        resid = T.inv_txfm2d_select(coeffs, tx, pos[:, 3] & 3, bd)
-    _put_blocks(Rbuf, pos[:, 0], pos[:, 1] - 1, pos[:, 2], pos[:, 1] != 0,
-                resid, ha, wa)
-
-
-def expand_prefix(cm, tt, scan, n2: int):
-    """First-ncoef scan coefficients [N, ncoef] -> raster [N, n2]."""
-    full = torch.zeros(cm.shape[0], n2, dtype=cm.dtype, device=cm.device)
-    return full.scatter_(1, scan[(tt & 3).long()], cm)
-
-
-def expand_pairs(cm):
-    """Interleaved (raster_idx, value) int16 pairs [N, 2P] -> raster
-    [N, 1024].  Pad pairs are (0, 0); they go to index 1024, which is
-    dropped (fused.py:593-599)."""
-    idx = cm[:, 0::2].long()
-    val = cm[:, 1::2]
-    idx = torch.where((idx == 0) & (val == 0), 1024, idx.clamp(0, 1024))
-    full = torch.zeros(cm.shape[0], 1025, dtype=cm.dtype, device=cm.device)
-    return full.scatter_(1, idx, val)[:, :1024]
 
 
 # ----------------------------------------------------------------- inter
@@ -255,12 +198,12 @@ def _land(Fbuf, pred, plane, y0, x0, valid, n0: int, ha: int, wa: int):
     [n0, N) compound second predictions that average into them."""
     args = (plane, y0, x0, valid)
     if n0:
-        _put_blocks(Fbuf, *(a[:n0] for a in args), pred[:n0], ha, wa)
+        put_blocks(Fbuf, *(a[:n0] for a in args), pred[:n0], ha, wa)
     if n0 < pred.shape[0]:
         rest = [a[n0:] for a in args]
-        cur = Fbuf[_block_index(Fbuf, *rest, pred.shape[1], pred.shape[2],
-                                ha, wa)]
-        _put_blocks(Fbuf, *rest, (cur + pred[n0:] + 1) >> 1, ha, wa)
+        cur = Fbuf[block_index(Fbuf, *rest, pred.shape[1], pred.shape[2],
+                               ha, wa)]
+        put_blocks(Fbuf, *rest, (cur + pred[n0:] + 1) >> 1, ha, wa)
 
 
 def mc_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
@@ -308,32 +251,36 @@ def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int, ss=(1, 1)):
                             (f + R[..., planes, :h, :w]).clamp(0, maxv), f))
 
 
-# ----------------------------------------------------------------- intra
+# ----------------------------------------------------------------- residual
 
 
-def intra_chunk(Fbuf, R, u, bs: int, bd: int, plane_off=None, keep=None):
-    """One intra chunk from its 4-int16 records (fused._intra_chunk):
-      w0 = x0/4 | plane << 14
-      w1 = (y0/4 + 1) | have_up << 15      (all-zero record = padding)
-      w2 = mode | n_above << 4 | n_left << 10
-      w3 = tl_mode | have_left << 2
-    u [CHUNK, 4] int32, sign-extended from int16.  For a stack of frames
-    (R [3N, ha, wa]), plane_off [CHUNK] adds each record's frame offset
-    3s to its plane, and records where keep [CHUNK] is false are padding."""
-    w0 = u[:, 0] & 0xFFFF
-    w1 = u[:, 1] & 0xFFFF
-    w2 = u[:, 2] & 0xFFFF
-    w3 = u[:, 3]
-    y0q = w1 & 0x7FFF
-    y0 = torch.where(y0q == 0, -32768, (y0q - 1) << 2)
-    if keep is not None:
-        y0 = torch.where(keep, y0, -32768)
-    plane = w0 >> 14
-    if plane_off is not None:
-        plane = plane + plane_off
-    stages.intra_wave(Fbuf, R, plane, (w0 & 0x3FFF) << 2, y0, w2 & 15,
-                      (w2 >> 4) & 63, (w2 >> 10) & 63, w3 & 3, w1 >> 15,
-                      (w3 >> 2) & 1, bs=bs, bd=bd)
+def residual_stage(Rbuf, seg16, trips, segs, ha: int, wa: int, bd: int,
+                   lossless: bool, bucket=residual_bucket, coo=residual_coo):
+    """The residual transforms of a frame (or of a round's frames) into the
+    frame buffer Rbuf: one `bucket` call per coefficient bucket with trips
+    and one `coo` call per coo bucket (fused.py:533-602).  seg16(name, n)
+    gives the int16 device view [A, n, ...] of the first n rows of a
+    segment of each of the A flats, trips(slot) a misc trip count (the
+    round's most in the batched step); bucket and coo default to the
+    kernels' wrappers."""
+    for name, tx, ncoef in pack.COEFF_BUCKETS:
+        n = trips(pack.MISC_TRIP[name]) * pack.COEFF_CHUNK[name]
+        # a lossless layout holds bucket tx0 only (fused.py:541)
+        if not n or f"coeff_{name}" not in segs:
+            continue
+        # above 8 bits the high words: v = (hi << 15) + lo (fused.py:557)
+        bucket(Rbuf, seg16(f"coeff_{name}", n),
+               seg16(f"coeffh_{name}", n) if bd > 8 else None,
+               seg16(f"cpos_{name}", n), tx, ha, wa, bd, lossless)
+    for name, chunk, trip in (
+            ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
+            ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
+        # 8-bit only: the layout has no coo buckets above 8 bits nor in a
+        # lossless frame
+        n = trips(trip) * chunk
+        if n and f"coeff_{name}" in segs:
+            coo(Rbuf, seg16(f"coeff_{name}", n), seg16(f"cpos_{name}", n),
+                ha, wa)
 
 
 # ----------------------------------------------------------------- frame step
@@ -383,7 +330,6 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
     wa = ((mi_cols + 7) & ~7) * 8
     hc, wc = ha >> ss[1], wa >> ss[0]
     segs = layout.segs
-    scans = {}
 
     def step(pool, ring, kernels, flat: np.ndarray):
         dev = pool.device
@@ -414,36 +360,11 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
         R = Rbuf[:-1].view(3, ha, wa)
 
         with record_function("vp9.residual"):
-            for name, tx, ncoef in pack.COEFF_BUCKETS:
-                n = int(misc[pack.MISC_TRIP[name]]) * pack.COEFF_CHUNK[name]
-                # a lossless layout holds bucket tx0 only (fused.py:541)
-                if not n or f"coeff_{name}" not in segs:
-                    continue
-                if bd == 8:
-                    cm = seg(f"coeff_{name}", n, torch.int16)
-                else:
-                    # hi/lo words: v = (hi << 15) + lo (fused.py:557-561)
-                    cm = ((seg(f"coeffh_{name}", n) << 15)
-                          + seg(f"coeff_{name}", n))
-                pos = seg(f"cpos_{name}", n)
-                n2 = (4 << tx) ** 2
-                if ncoef < n2:
-                    key = (tx, ncoef)
-                    if key not in scans:
-                        scans[key] = _scan_table(tx, ncoef, dev)
-                    cm = expand_prefix(cm, pos[:, 3], scans[key], n2)
-                residual_units(Rbuf, cm, pos, tx, ha, wa, bd, lossless)
-            for name, chunk, trip in (
-                    ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
-                    ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
-                # 8-bit only: the layout has no coo buckets above 8 bits
-                # nor in a lossless frame
-                n = int(misc[trip]) * chunk
-                if n and f"coeff_{name}" in segs:
-                    residual_units(Rbuf,
-                                   expand_pairs(seg(f"coeff_{name}", n,
-                                                    torch.int16)),
-                                   seg(f"cpos_{name}", n), 3, ha, wa)
+            # one stream: each bucket's records as [1, n, ...]
+            residual_stage(Rbuf,
+                           lambda name, n: seg(name, n, torch.int16)[None],
+                           lambda slot: int(misc[slot]), segs, ha, wa, bd,
+                           lossless)
 
         with record_function("vp9.inter"):
             for w, n_slot, r0_slot in MC_CLASSES:
@@ -461,10 +382,8 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
         with record_function("vp9.intra"):
             n_intra = int(misc[3])
             if n_intra:
-                chunk_bs = host("chunk_bs")
-                chunks = seg("intra", n_intra)
-                for i in range(n_intra):
-                    intra_chunk(Fbuf, R, chunks[i], 4 << int(chunk_bs[i]), bd)
+                intra_pass(Fbuf, R, seg("intra", n_intra, torch.int16),
+                           host("chunk_bs"), n_intra, bd)
 
         with record_function("vp9.loopfilter"):
             loop_filter(F, seg, int(misc[4]), mi_rows, mi_cols, bd, ss)
@@ -524,20 +443,18 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
     element), frame k at planes 3k .. 3k + 2, and every stage runs once
     for all of them: each coefficient bucket, each MC class (landed in
     two steps, so that every compound average sees its first
-    prediction), the mask add, each intra chunk index (one call per
-    distinct block size among the streams' chunk i; the chunks of two
-    streams never depend on each other), one `lf_frames` launch, one
-    indexed pool refresh and one indexed ring write.  A stream whose
-    count in a bucket, class or chunk list is below the round's most
-    runs the rest as padding records (the wire is zero there), as JAX's
-    shared round-max trip counts do."""
+    prediction), the mask add, the intra chunks (one call for the
+    round: chunk index i of every stream at once, each record with its
+    own stream's block size; the chunks of two streams never depend on
+    each other), one `lf_frames` launch, one indexed pool refresh and one
+    indexed ring write.  A stream whose count in a bucket, class or chunk
+    list is below the round's most runs the rest as padding records (the
+    wire is zero there), as JAX's shared round-max trip counts do."""
     ha = ((mi_rows + 7) & ~7) * 8
     wa = ((mi_cols + 7) & ~7) * 8
     hc, wc = ha >> 1, wa >> 1
     segs = layout.segs
     nflat = cdiv(layout.size, pack.PAGE) * pack.PAGE
-    ich = segs["intra"][1][1]
-    scans = {}
 
     def step(pool, ring, kernels, flats: np.ndarray, active):
         dev = pool.device
@@ -578,37 +495,10 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
         poff = 3 * torch.arange(A, device=dev, dtype=I32)[:, None]
 
         with record_function("vp9.residual"):
-            for name, tx, ncoef in pack.COEFF_BUCKETS:
-                n = most(pack.MISC_TRIP[name]) * pack.COEFF_CHUNK[name]
-                if not n or f"coeff_{name}" not in segs:
-                    continue
-                if bd == 8:
-                    cm = seg(f"coeff_{name}", n, torch.int16)
-                else:
-                    cm = ((seg(f"coeffh_{name}", n) << 15)
-                          + seg(f"coeff_{name}", n))
-                cm = cm.reshape(A * n, ncoef)
-                pos = seg(f"cpos_{name}", n)
-                pos[:, :, 0] += poff
-                pos = pos.reshape(A * n, 4)
-                n2 = (4 << tx) ** 2
-                if ncoef < n2:
-                    key = (tx, ncoef)
-                    if key not in scans:
-                        scans[key] = _scan_table(tx, ncoef, dev)
-                    cm = expand_prefix(cm, pos[:, 3], scans[key], n2)
-                residual_units(Rbuf, cm, pos, tx, ha, wa, bd, lossless)
-            for name, chunk, trip in (
-                    ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
-                    ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
-                n = most(trip) * chunk
-                if n and f"coeff_{name}" in segs:
-                    pos = seg(f"cpos_{name}", n)
-                    pos[:, :, 0] += poff
-                    cm = seg(f"coeff_{name}", n, torch.int16)
-                    residual_units(Rbuf,
-                                   expand_pairs(cm.reshape(A * n, -1)),
-                                   pos.reshape(A * n, 4), 3, ha, wa)
+            # each bucket one call over every stream's records; stream k's
+            # units land in planes 3k + plane
+            residual_stage(Rbuf, lambda name, n: seg(name, n, torch.int16),
+                           most, segs, ha, wa, bd, lossless)
 
         with record_function("vp9.inter"):
             pool_s = pool.view(n_streams * 8, 3, ha, wa)
@@ -634,32 +524,23 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
                 plane = plane.reshape(-1)
                 y0, x0 = u[:, 1] - 1, u[:, 0] & 0x1FFF
                 valid = u[:, 1] != 0
-                _put_blocks(Fbuf, plane, y0, x0, valid & first, pred,
-                            ha, wa)
+                put_blocks(Fbuf, plane, y0, x0, valid & first, pred,
+                           ha, wa)
                 second = valid & ~first
-                cur = Fbuf[_block_index(Fbuf, plane, y0, x0, second, w, w,
-                                        ha, wa)]
-                _put_blocks(Fbuf, plane, y0, x0, second,
-                            (cur + pred + 1) >> 1, ha, wa)
+                cur = Fbuf[block_index(Fbuf, plane, y0, x0, second, w, w,
+                                       ha, wa)]
+                put_blocks(Fbuf, plane, y0, x0, second,
+                           (cur + pred + 1) >> 1, ha, wa)
             mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd)
 
         with record_function("vp9.intra"):
-            counts = [int(m[3]) for m in miscs]
-            if max(counts):
-                chunk_bs = [layout.view(f, "chunk_bs") for f in flats]
-                chunks = seg("intra", max(counts)).transpose(0, 1
-                                                             ).contiguous()
-                cbs_d = seg("chunk_bs", max(counts))
-                Rs = Rbuf[:-1].view(3 * A, ha, wa)
-                off = poff.repeat_interleave(ich, 1).reshape(-1)
-                for i in range(max(counts)):
-                    codes = sorted({int(chunk_bs[k][i]) for k in range(A)
-                                    if i < counts[k]})
-                    u = chunks[i].reshape(-1, 4)
-                    for c in codes:
-                        keep = None if len(codes) == 1 else (
-                            cbs_d[:, i, None] == c).expand(A, ich).reshape(-1)
-                        intra_chunk(Fbuf, Rs, u, 4 << c, bd, off, keep)
+            n_intra = most(3)
+            if n_intra:
+                intra_pass_batched(
+                    Fbuf, Rbuf[:-1].view(3 * A, ha, wa),
+                    seg("intra", n_intra, torch.int16),
+                    seg("chunk_bs", n_intra, torch.int16),
+                    seg("misc", dtype=torch.int16)[:, 3], n_intra, bd)
 
         with record_function("vp9.loopfilter"):
             lf_frames(F, seg("lfm", dtype=torch.int16),

@@ -10,7 +10,11 @@ steps), then:
     (runtime/fused.py: vp9.upload, vp9.residual, vp9.inter, vp9.intra,
     vp9.loopfilter, vp9.refresh): the device is synchronised at each span
     edge, and the host wall time inside each span is summed.  Prints the
-    frame rate of this pass and each stage's milliseconds and share;
+    frame rate of this pass and each stage's milliseconds and share, and
+    the kernels' counters over the pass: the launches of the loop filter
+    (lf_frame, lf_chroma_422), the residual kernel and the intra kernel
+    (grids, and the host calls that enqueued them), and the calls of each
+    plain twin (0 on a CUDA device);
   * with --profile-frames K, decodes the first K frames under
     torch.profiler and prints the kernel launches, the device time of
     all kernels and copies, the device's busy share (that time over the
@@ -37,8 +41,14 @@ from ..codec import (CodecCtx, DecCfg, FrameIter, vp9_dx_torch,
                      vpx_codec_dec_init, vpx_codec_decode, vpx_codec_destroy,
                      vpx_codec_get_frame)
 from ..containers import open_video
+from ..ops.cuda import intra as IN
+from ..ops.cuda import lf422 as L4
+from ..ops.cuda import loopfilter as LF
+from ..ops.cuda import residual as RS
 from ..utils.md5 import frame_md5
 from ..runtime import fused
+
+_KERNELS = (LF, L4, RS, IN)
 
 
 def decode(path: str, device: str, limit: int = 0, streams: int = 1):
@@ -143,6 +153,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     decode(args.input, args.device, args.frames, args.streams)
+    for k in _KERNELS:
+        k.reset_counts()
     n, wall, spent = stage_clock(args.input, args.device, args.frames,
                                  args.streams)
     print(f"{args.input}: {n} frames, {wall:.3f} s with a stage clock "
@@ -152,6 +164,11 @@ def main(argv=None):
     rest = wall - sum(spent.values())
     print(f"  {'outside step':16s} {rest * 1e3:10.1f} ms  {rest / wall:6.1%}"
           "  (parse, pack, read-back)")
+    print(f"  kernel launches: lf_frame {LF.launches}, lf_chroma_422 "
+          f"{L4.launches}, residual {RS.launches}, intra {IN.launches} "
+          f"grids in {IN.host_calls} host calls; plain calls: "
+          + ", ".join(f"{k.__name__.rsplit('.', 1)[1]} {k.plain_calls}"
+                      for k in _KERNELS))
     if args.profile_frames:
         kernel_profile(args.input, args.device, args.profile_frames,
                        args.streams)
