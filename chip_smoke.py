@@ -38,6 +38,14 @@ Phases, each of which exits non-zero on failure:
          of pack.COEFF_BUCKETS, the WHT and (8 bits) the two coo buckets,
          at bit depths 8, 10 and 12, with moderate and extreme inputs and
          padded records, for one stream and for three in one call;
+       - the MC kernel (K3, and K6 for the scaled class) against its
+         plain twins on every case of kernel_cases.MC_CASES and on two
+         large ones (1920x1088 at 10 bits with the HD chunk lengths, and
+         16 streams of 640x384 in one batched call): every tile class,
+         bit depths 8, 10 and 12, 4:2:0, 4:4:4 and 4:2:2, pool canvases
+         larger than the frame, sources past the crop, compound chunks,
+         padded records; one host call a frame or round, one grid per
+         class and landing phase with chunks;
   3. run the frame step once at one 64x64 superblock (fused.entry);
   4. the main paths, each with the kernel counts set to 0 just before it
      and read just after:
@@ -51,9 +59,10 @@ Phases, each of which exits non-zero on failure:
          every frame must run on the device; the loop-filter kernel must
          have launched on every stream with a filter level, the 4:2:2
          chroma kernel on p1_02 and p1_04, the intra and the residual
-         kernels on every stream (each starts with a keyframe), the intra
-         kernel from at most one host call per frame, and no plain
-         version ever;
+         kernels on every stream (each starts with a keyframe), the MC
+         kernel on every stream (each has inter frames) and its scaled
+         class on cp01, the intra and the MC kernels from at most one host
+         call per frame each, and no plain version ever;
        - the tile probe through its entry point (tools/tile_probe.py),
          checked against the probe's NumPy reference;
        - the multi-stream decoders (runtime/multistream.py), each run on
@@ -66,14 +75,18 @@ Phases, each of which exits non-zero on failure:
          device (on in02 + sc01: as many on the host as a TorchRecon gives
          sc01 alone), and when every frame joined the batch the loop
          filter must have launched once per round with a level, as the
-         port's parser reads the headers, and the intra kernel from at
-         most one host call per round; no plain version ever;
+         port's parser reads the headers, and the intra and the MC kernels
+         from at most one host call per round each; no plain version
+         ever;
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
      residual kernels on hd01's keyframe as the frame step feeds them
      (its residual buckets, then its 2703 intra chunks), beside the gap
-     of one dependent empty launch; each timed run of the loop filter is
+     of one dependent empty launch; the MC kernel on nc03's busiest
+     inter frame, on hd01's first inter frame and (the scaled class
+     alone) on cp01's busiest scaled frame, as the frame step feeds it,
+     each held against the twins; each timed run of the loop filter is
      also held against the plain result, and lf_frames on 16 640x384
      frames is timed beside 16 lf_frame calls.
 
@@ -121,12 +134,18 @@ NC03_BATCH = ("nc03_640x360_occl",) * 16
 MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
 RESIZE = ("in02_352x288", "sc01_352x288_scaled")
 MSD = ("kf01_64x64", "kf03_odd_98x66")
-KERNELS = ("loopfilter", "tileprobe", "intra", "residual")
+KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc")
 # intra kernel cases: (bd, ha, wa, ich, block size code of planes 0..2)
 INTRA_CASES = [(bd, 64, 64, 64, codes) for bd in (8, 10, 12)
                for codes in ((0, 1, 2), (3, 2, 1))] + [
                    (10, 1088, 1920, 256, (0, 3, 1))]
 KEYFRAME = "hd01_1920x1080_t4"        # the timed intra and residual inputs
+# MC cases beyond kernel_cases.MC_CASES (its fields): the 1080p canvas
+# with the chunk lengths of HD and above, and a batched round of 16
+# 640x384 frames
+MC_BIG_CASES = ((10, (1, 1), 1088, 1920, (0, 0), 1, (1024, 512, 256, 128,
+                                                     128), True),
+                (8, (1, 1), 384, 640, (0, 0), 16, None, False))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor float32 rate; the
                                 # table has no int32 rate, so it stands in
@@ -138,6 +157,27 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_usage(log: str):
+    """(kernel, "N registers, M bytes smem, spills") for each entry function
+    in an nvcc -Xptxas -v log."""
+    import re
+    out, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = m.group(1), "spills not reported"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spills = f"{m.group(1)} + {m.group(2)} bytes spilled"
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and fn:
+            out.append((fn, f"{m.group(1)} registers, {m.group(2) or 0} "
+                            f"bytes smem, {spills}"))
+            fn = None
+    return out
 
 
 def pixels(rng, h, w, bd):
@@ -528,7 +568,7 @@ def multi_stream_paths(LF, counted):
         for k in counted:
             k.reset_counts()
         md5s, bd, dt = batched(names, rounds)
-        _, _, _, IN, RS = counted
+        _, _, _, IN, RS, MC = counted
         st = bd.stats()
         unbatched = sum(r["unbatched"] for r in st)
         n_frames = sum(len(m) for m in md5s)
@@ -542,18 +582,21 @@ def multi_stream_paths(LF, counted):
               f"{sum(r['host'] for r in st)}, frames_unbatched {unbatched}, "
               f"lf_frames launches {LF.launches} (rounds with a level: "
               f"{want}), intra grids {IN.launches} in {IN.host_calls} host "
-              f"calls, residual launches {RS.launches}, plain calls "
+              f"calls, residual launches {RS.launches}, mc grids "
+              f"{MC.launches} ({MC.scaled_launches} scaled) in "
+              f"{MC.host_calls} host calls, plain calls "
               f"{[k.plain_calls for k in counted]}, cold {dt:.2f} s "
               f"({dt / max(bd.rounds, 1):.3f} s a round)")
         if bad or any(k.plain_calls for k in counted) or any(
                 len(m) != len(golden_md5(n)[:rounds]) for n, m in zip(
                     names, md5s)):
             raise SystemExit(f"batched {label}: decode check failed")
-        if not IN.launches or not RS.launches \
-                or not 0 < IN.host_calls <= bd.rounds + unbatched:
-            raise SystemExit(f"batched {label}: the intra or residual "
-                             "kernel never ran, or intra took more than one "
-                             "host call a round")
+        if not IN.launches or not RS.launches or not MC.launches \
+                or not 0 < IN.host_calls <= bd.rounds + unbatched \
+                or not 0 < MC.host_calls <= bd.rounds + unbatched:
+            raise SystemExit(f"batched {label}: the intra, residual or MC "
+                             "kernel never ran, or intra or MC took more "
+                             "than one host call a round")
         if names is RESIZE:
             alone = TorchRecon("cuda")
             dec = NativeVp9Decoder(recon_fn=alone)
@@ -804,6 +847,243 @@ def coeff_buckets():
                 ("tx3cs", pack.MISC_TRIP_TX3CS, pack.CHUNK_TX3CS, 3, 2)]
 
 
+# int32 operations per pixel of the MC stage: a multiply and an add per
+# nonzero tap, the rounding (an add and a shift) and the clip (2) of each
+# pass's pixel, the landing's bounds tests (4) per output pixel, and a
+# compound average's (3)
+MC_TAP_OPS = 2
+MC_ROUND_OPS = 4
+MC_LAND_OPS = 4
+MC_AVG_OPS = 3
+
+
+def mc_work(pool, kernels, classes, scaled, ha, wa):
+    """(bytes, operations) of one single-stream mc_frame call on these
+    arguments (device views), counting what this call's data needs: each
+    class's records and headers read once and the filter table once; of
+    the pool, the distinct source pixels that a nonzero tap of a live
+    tile reaches, after the crop clamps, read once (a phase-0 pass is a
+    copy, and neighbouring tiles share their aprons); the distinct
+    destination pixels written once, and those that a compound second
+    averages into and no first of this call writes read once; per live
+    tile, the operations of its nonzero taps on the intermediate pixels
+    that its vertical taps reach and on its output pixels, with
+    MC_ROUND_OPS, MC_LAND_OPS and MC_AVG_OPS."""
+    dev = pool.device
+    S, _, pha, pwa = pool.shape
+    src = torch.zeros(pool.numel(), dtype=torch.bool, device=dev)
+    firsts = torch.zeros(3 * ha * wa, dtype=torch.bool, device=dev)
+    seconds = torch.zeros_like(firsts)
+    nz = kernels.long() != 0                        # [4, 16, 8]
+    k8 = torch.arange(8, device=dev)
+    nbytes, ops = kernels.nbytes, 0
+
+    def live(units, hdrs, n, r0, rw, valid):
+        """The live records [T, rw] (int64) of a class, their chunk
+        headers and whether each is a first prediction."""
+        CH = units.shape[2]
+        u = units[0, :n].reshape(-1, rw).long()
+        hd = hdrs[0, :n].long().repeat_interleave(CH, 0)
+        first = torch.arange(len(u), device=dev) < int(r0[0]) * CH
+        keep = u[:, valid] != 0
+        return u[keep], hd[keep], first[keep]
+
+    def land(plane, dy, dx, first, w):
+        r = torch.arange(w, device=dev)
+        y = dy[:, None, None] + r[:, None]
+        x = dx[:, None, None] + r
+        ok = (y >= 0) & (y < ha) & (x >= 0) & (x < wa) \
+            & ((plane >= 0) & (plane <= 2))[:, None, None]
+        lin = (plane[:, None, None] * ha + y) * wa + x
+        firsts[lin[ok & first[:, None, None]]] = True
+        seconds[lin[ok & ~first[:, None, None]]] = True
+
+    def reach(taps, w):
+        """[T, w + 7]: the window positions that output positions 0..w-1
+        reach through these nonzero taps [T, 8]."""
+        m = torch.zeros(len(taps), w + 7, dtype=torch.bool, device=dev)
+        for k in range(8):
+            m[:, k:k + w] |= taps[:, k:k + 1]
+        return m
+
+    for w, units, hdrs, n, r0, _ in classes:
+        u, hd, first = live(units, hdrs, n, r0, 4, 1)
+        filt = (u[:, 0] >> 13) & 3
+        tx, ty = nz[filt, u[:, 3] & 15], nz[filt, u[:, 2] & 15]   # [T, 8]
+        dx, dy = u[:, 0] & 0x1FFF, u[:, 1] - 1
+        t = torch.arange(w + 7, device=dev)
+        rows = torch.minimum((dy + (u[:, 2] >> 4) - 3)[:, None] + t,
+                             hd[:, 4:5].clamp(1, pha) - 1).clamp(min=0)
+        cols = torch.minimum((dx + (u[:, 3] >> 4) - 3)[:, None] + t,
+                             hd[:, 3:4].clamp(1, pwa) - 1).clamp(min=0)
+        base = (hd[:, 0].clamp(0, S - 1) * 3 + hd[:, 1].clamp(0, 2)) * pha
+        need_r, need_c = reach(ty, w), reach(tx, w)
+        lin = ((base[:, None] + rows) * pwa)[:, :, None] + cols[:, None, :]
+        src[lin[need_r[:, :, None] & need_c[:, None, :]]] = True
+        land(hd[:, 1], dy, dx, first, w)
+        nbytes += units[0, :n].nbytes + hdrs[0, :n].nbytes
+        ops += int((need_r.sum(1) * w * (MC_TAP_OPS * tx.sum(1)
+                                         + MC_ROUND_OPS)).sum()) \
+            + int((w * w * (MC_TAP_OPS * ty.sum(1) + MC_ROUND_OPS
+                            + MC_LAND_OPS)).sum()) \
+            + int((~first).sum()) * MC_AVG_OPS * w * w
+    if scaled is not None:
+        units, hdrs, n, r0, _ = scaled
+        u, hd, first = live(units, hdrs, n, r0, 16, 2)
+        filt = u[:, 8].clamp(0, 3)
+        c4 = torch.arange(4, device=dev)
+        xq4 = u[:, 6:7] + c4 * u[:, 12:13].clamp(0, 32)           # [T, 4]
+        yq4 = u[:, 7:8] + c4 * u[:, 13:14].clamp(0, 32)
+        tx = nz[filt[:, None], xq4 & 15]                           # [T, 4, 8]
+        ty = nz[filt[:, None], yq4 & 15]
+        cols = torch.minimum(
+            (u[:, 4:5] + (xq4 >> 4))[:, :, None] + k8 - 3,
+            u[:, 9].clamp(1, pwa)[:, None, None] - 1).clamp(min=0)
+        rows = torch.minimum(u[:, 5:6] - 3 + torch.arange(14, device=dev),
+                             u[:, 10:11].clamp(1, pha) - 1).clamp(min=0)
+        # the intermediate rows that a nonzero vertical tap reaches
+        trow = ((yq4 >> 4)[:, :, None] + k8).clamp(0, 13)          # [T, 4, 8]
+        need_r = torch.zeros(len(u), 14, dtype=torch.bool, device=dev)
+        tile = torch.arange(len(u), device=dev)[:, None, None]
+        need_r[tile.expand_as(trow)[ty], trow[ty]] = True
+        base = (hd[:, 0].clamp(0, 7) * 3 + hd[:, 1].clamp(0, 2)) * pha
+        lin = ((base[:, None] + rows) * pwa)[:, :, None, None] \
+            + cols[:, None]                                        # [T, 14, 4, 8]
+        src[lin[need_r[:, :, None, None] & tx[:, None]]] = True
+        land(u[:, 0], u[:, 2] - 1, u[:, 1], first, 4)
+        nbytes += units[0, :n].nbytes + hdrs[0, :n].nbytes
+        ops += int((need_r.sum(1) * (MC_TAP_OPS * tx.sum((1, 2))
+                                     + 4 * MC_ROUND_OPS)).sum()) \
+            + int((4 * (MC_TAP_OPS * ty.sum(2) + MC_ROUND_OPS
+                        + MC_LAND_OPS)).sum()) \
+            + int((~first).sum()) * MC_AVG_OPS * 16
+    nbytes += 4 * int(src.sum() + (firsts | seconds).sum()
+                      + (seconds & ~firsts).sum())
+    return nbytes, ops
+
+
+def mc_vs_plain(dev, MC, KC) -> int:
+    """Phase 2: the MC kernel against its plain twins on every case of
+    kernel_cases.MC_CASES and MC_BIG_CASES: mc_frame against
+    mc_frame_plain, for one stream or several; one host call and one
+    grid per class and landing phase with chunks.  Exits on a difference; returns
+    the largest error (0)."""
+    from cuda_vp9_torch import models
+    rng = np.random.default_rng(606)
+    kern = torch.as_tensor(np.asarray(models.FILTER_KERNELS, np.int32),
+                           device=dev)
+    for case in list(KC.MC_CASES) + list(MC_BIG_CASES):
+        bd, ss, ha, wa, pad, n, chunks, scaled = case
+        c = KC.mc_case(rng, bd, ss, ha, wa, pad, n, chunks, scaled)
+        fl = torch.from_numpy(c.flats).to(dev)
+        F0 = frame_buf(dev, c.F)
+        if n == 1:
+            pool, active = c.pool[8 * int(c.active[0]):][:8], None
+            classes, scaled_args = KC.mc_args(c, fl, 0)
+        else:
+            pool, active = c.pool, torch.from_numpy(c.active).to(dev)
+            classes, scaled_args = KC.mc_args(c, fl)
+        args = (torch.from_numpy(pool).to(dev), kern, classes, scaled_args,
+                active, bd, ha, wa)
+        want = KC.mc_grids(c)[0]
+        Fk, Fp = F0.clone(), F0.clone()
+        grids, calls = MC.launches, MC.host_calls
+        MC.mc_frame(Fk, *args)
+        grids, calls = MC.launches - grids, MC.host_calls - calls
+        MC.mc_frame_plain(Fp, *args)
+        torch.cuda.synchronize()
+        err = int((Fk[:-1] - Fp[:-1]).abs().max())
+        changed = int((Fp != F0).sum())
+        what = (f"{n} x {ha}x{wa} bd {bd} chroma {ss} pool +{pad} chunks "
+                f"{chunks or KC.MC_CHUNKS} scaled {scaled}")
+        print(f"mc kernel vs plain {what}: max_abs_err {err} (tolerance 0), "
+              f"{changed} pixels written, {grids} grids (want {want}) in "
+              f"{calls} host call")
+        if err or not changed or grids != want or calls != 1 \
+                or Fk[-1] != F0[-1]:
+            raise SystemExit(f"mc kernel disagrees at {what}")
+    return 0
+
+
+def capture_mc(name, n_frames, key):
+    """Decode `name` on the card with the frame step's mc_frame watched,
+    and return the arguments of the call that key(index, live unscaled
+    tiles, live scaled tiles) ranks highest (None: not a candidate), its
+    frame buffer as it was before the call."""
+    from cuda_vp9_torch.runtime import fused
+    real, best, calls = fused.mc_frame, {}, [0]
+
+    def spy(Fbuf, pool, kernels, classes, scaled, active, bd, ha, wa):
+        live = sum(int((c[1][:, :c[3], :, 1] != 0).sum()) for c in classes)
+        live_s = int((scaled[0][:, :scaled[2], :, 2] != 0).sum()) \
+            if scaled else 0
+        k = key(calls[0], live, live_s)
+        calls[0] += 1
+        if k is not None and ("key" not in best or k > best["key"]):
+            best.update(key=k, args=(Fbuf.clone(), pool.clone(), kernels,
+                                     classes, scaled, active, bd, ha, wa),
+                        frame=calls[0] - 1, live=(live, live_s))
+        return real(Fbuf, pool, kernels, classes, scaled, active, bd, ha, wa)
+
+    fused.mc_frame = spy
+    try:
+        decode(name, n_frames)
+    finally:
+        fused.mc_frame = real
+    return best
+
+
+def mc_timings(card, MC):
+    """Phase 5: the MC kernel against its twins (CUDA events) on nc03's
+    busiest inter frame, hd01's first inter frame and, the scaled class
+    alone, cp01's busiest scaled frame, as the frame step feeds it; each
+    result held against the twins'.  Returns {label: (ms, plain_ms,
+    bound, by)}."""
+    rows = {}
+    for label, name, n, key, scaled_only in (
+            ("nc03 busiest", "nc03_640x360_occl", 12,
+             lambda i, u, s: u + s if u + s else None, False),
+            ("hd01 first inter", "hd01_1920x1080_t4", 4,
+             lambda i, u, s: -i if u + s else None, False),
+            ("cp01 busiest scaled", "cp01_352x288_compound", 8,
+             lambda i, u, s: s if s else None, True)):
+        got = capture_mc(name, n, key)
+        F0, pool, kern, classes, scaled, active, bd, ha, wa = got["args"]
+        if scaled_only:
+            classes = []
+
+        def run(F, fn=MC.mc_frame):
+            fn(F, pool, kern, classes, scaled, active, bd, ha, wa)
+
+        Fk, Fp = F0.clone(), F0.clone()
+        run(Fk)
+        run(Fp, MC.mc_frame_plain)
+        # the twins also write padded records to the trash element
+        if not torch.equal(Fk[:-1], Fp[:-1]):
+            raise SystemExit(f"{label}: mc kernel != plain")
+        ms = cuda_ms(run, 20, F0.clone)
+        plain_ms = cuda_ms(lambda F: run(F, MC.mc_frame_plain), 3, F0.clone)
+        # the host's share: the wrapper call's own time, which enqueues the
+        # grids and returns
+        host = []
+        for _ in range(20):
+            F = F0.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(F)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        b, by = bound(*mc_work(pool, kern, classes, scaled, ha, wa))
+        rows[label] = (ms, plain_ms, b, by)
+        print(f"{label} (frame {got['frame']}, live tiles {got['live'][0]} "
+              f"unscaled, {got['live'][1] if scaled is not None else 0} "
+              f"scaled{', the scaled class alone' if scaled_only else ''}): "
+              f"mc kernel {ms:.4f} ms (the wrapper call's host time "
+              f"{statistics.median(host):.4f} ms), plain {plain_ms:.3f} ms, "
+              f"bound {b:.5f} ms ({by}); equal to the plain result [{card}]")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -814,6 +1094,7 @@ def main() -> int:
     from cuda_vp9_torch.ops.cuda import intra as IN
     from cuda_vp9_torch.ops.cuda import lf422 as L4
     from cuda_vp9_torch.ops.cuda import loopfilter as LF
+    from cuda_vp9_torch.ops.cuda import mc as MC
     from cuda_vp9_torch.ops.cuda import residual as RS
     from cuda_vp9_torch.ops.cuda import tileprobe as TP
     from cuda_vp9_torch.runtime import fused, pack
@@ -836,10 +1117,14 @@ def main() -> int:
     TP._lib()
     IN._lib()
     RS._lib()
+    MC._lib()
     print(f"build {', '.join(k + '.cu' for k in KERNELS)}: "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_build.build_seconds.get(k, 0.0):.2f} s"
                       for k in KERNELS) + ")")
+    for k in KERNELS:
+        for fn, line in ptxas_usage(_build.build_log.get(k, "")):
+            print(f"ptxas {k}.cu {fn}: {line}")
 
     # 2. each kernel against its plain version, bit-exact
     rng = np.random.default_rng(2026)
@@ -938,6 +1223,7 @@ def main() -> int:
 
     in_err = intra_vs_plain(rng, dev, IN, KC)
     rs_err = residual_vs_plain(rng, dev, RS, KC, pack)
+    mc_err = mc_vs_plain(dev, MC, KC)
 
     # 3. the step at one superblock
     step, sargs = fused.entry(dev)
@@ -946,16 +1232,19 @@ def main() -> int:
     print("fused.entry: one 64x64 step ran")
 
     # 4a. the decode path through the codec API, counted
-    counted = (LF, L4, TP, IN, RS)
+    counted = (LF, L4, TP, IN, RS, MC)
     for k in counted:
         k.reset_counts()
     lf_by_stream = {}
     for name, n, filtered in STREAMS:
         before = [(k.launches, getattr(k, "host_calls", 0)) for k in counted]
+        mcs_before = MC.scaled_launches
         md5s, recon, dt = decode(name, n)
-        (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _) = [
-            (k.launches - b[0], getattr(k, "host_calls", 0) - b[1])
-            for k, b in zip(counted, before)]
+        (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _), \
+            (mc_here, mc_calls) = [
+                (k.launches - b[0], getattr(k, "host_calls", 0) - b[1])
+                for k, b in zip(counted, before)]
+        mcs_here = MC.scaled_launches - mcs_before
         lf_by_stream[name] = lf_here
         golden = golden_md5(name)[:n]
         bad = [i for i, (a, b) in enumerate(zip(md5s, golden)) if a != b]
@@ -964,7 +1253,8 @@ def main() -> int:
               f"{recon.frames_on_host}, wide {recon.frames_wide}, "
               f"lf_frame launches {lf_here}, lf_chroma_422 launches "
               f"{l4_here}, intra grids {in_here} in {calls_here} host calls, "
-              f"residual launches {rs_here}, cold {dt:.2f} s")
+              f"residual launches {rs_here}, mc grids {mc_here} ({mcs_here} "
+              f"scaled) in {mc_calls} host calls, cold {dt:.2f} s")
         if len(md5s) != n or bad or recon.frames_on_device != n \
                 or recon.frames_on_host:
             raise SystemExit(f"{name}: decode check failed")
@@ -977,15 +1267,24 @@ def main() -> int:
             raise SystemExit(f"{name}: the intra or residual kernel never "
                              "ran, ran a plain twin, or took more than one "
                              "host call a frame")
+        if not mc_here or not 0 < mc_calls <= n or MC.plain_calls \
+                or (name.startswith("cp01") and not mcs_here):
+            raise SystemExit(f"{name}: the MC kernel (or on cp01 its scaled "
+                             "class) never ran, ran a plain twin, or took "
+                             "more than one host call a frame")
     lf_launches, lf_plain = LF.launches, LF.plain_calls
     l4_launches, l4_plain = L4.launches, L4.plain_calls
     in_launches, in_calls = IN.launches, IN.host_calls
     rs_launches = RS.launches
+    mc_launches, mcs_launches = (MC.launches - MC.scaled_launches,
+                                 MC.scaled_launches)
     print(f"decode path: loop-filter kernel launches {lf_launches}, plain "
           f"calls {lf_plain}; 4:2:2 chroma kernel launches {l4_launches}, "
           f"plain calls {l4_plain}; intra kernel grids {in_launches} in "
           f"{in_calls} host calls, plain calls {IN.plain_calls}; residual "
           f"kernel launches {rs_launches}, plain calls {RS.plain_calls}; "
+          f"mc kernel grids {mc_launches} unscaled and {mcs_launches} scaled "
+          f"in {MC.host_calls} host calls, plain calls {MC.plain_calls}; "
           f"tile-probe launches {TP.launches}")
     if lf_launches == 0 or lf_plain or l4_launches == 0 or l4_plain:
         raise SystemExit("the decode path did not run the loop-filter "
@@ -999,13 +1298,15 @@ def main() -> int:
     print(f"tile probe path: max_abs_err {err} against the NumPy reference, "
           f"kernel launches {probe_launches}, plain calls {probe_plain}")
     if err or not probe_launches or probe_plain or LF.launches \
-            or L4.launches or IN.launches or RS.launches:
+            or L4.launches or IN.launches or RS.launches or MC.launches:
         raise SystemExit("the tile-probe path failed")
 
     # 4c. the multi-stream decoders, each counted on its own
     lfs_launches = multi_stream_paths(LF, counted)
 
     # 5. warm decode rate and kernel timing
+    for k in counted:
+        k.reset_counts()
     frames = {name: n for name, n, _ in STREAMS}
     for name in WARM:
         n = frames[name]
@@ -1022,6 +1323,12 @@ def main() -> int:
           f"{dt:.3f} s = {n_frames / dt:.2f} fps aggregate "
           f"({dt / bd.rounds:.3f} s a round; single-stream nc03 "
           f"{single_fps:.2f} fps in this run) [{card}]")
+    print(f"warm decodes: mc kernel grids {MC.launches} ({MC.scaled_launches} "
+          f"scaled) in {MC.host_calls} host calls, plain calls "
+          f"{[k.plain_calls for k in counted]}")
+    if any(k.plain_calls for k in counted) or not MC.launches:
+        raise SystemExit("warm decodes: a plain twin ran, or MC did not")
+    mc_rows = mc_timings(card, MC)
     in_row, rs_row = keyframe_timings(dev, card, IN, RS, fused)
     lf_rows = {}
     for bd in (8, 10):
@@ -1178,7 +1485,24 @@ def main() -> int:
          "replaces": "cuda_vp9_tpu/runtime/fused.py:44",
          "launches": rs_launches, "max_abs_err": rs_err,
          "ms": rs_row[0], "plain_ms": rs_row[1], "bound_ms": rs_row[2],
-         "bound_by": rs_row[3], "library_ms": None}]}))
+         "bound_by": rs_row[3], "library_ms": None},
+        {"name": "mc", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/mc.cu",
+         "replaces": "cuda_vp9_tpu/runtime/fused.py:163",
+         "launches": mc_launches, "max_abs_err": mc_err,
+         "ms": mc_rows["nc03 busiest"][0],
+         "plain_ms": mc_rows["nc03 busiest"][1],
+         "bound_ms": mc_rows["nc03 busiest"][2],
+         "bound_by": mc_rows["nc03 busiest"][3], "library_ms": None},
+        {"name": "mcs", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/mc.cu",
+         "replaces": "cuda_vp9_tpu/runtime/fused.py:388",
+         "launches": mcs_launches, "max_abs_err": mc_err,
+         "ms": mc_rows["cp01 busiest scaled"][0],
+         "plain_ms": mc_rows["cp01 busiest scaled"][1],
+         "bound_ms": mc_rows["cp01 busiest scaled"][2],
+         "bound_by": mc_rows["cp01 busiest scaled"][3],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ CSRC = _PKG / "csrc"
 OUT = _PKG.parent / "build" / "cuda_vp9_torch"
 
 build_seconds = {}      # name -> seconds the last build of this process took
+build_log = {}          # name -> nvcc's output of that build (ptxas -v)
 _libs = {}
 
 
@@ -48,10 +49,13 @@ def build(name: str) -> Path:
     # loads a half-written library
     tmp = so.with_name(f"{so.name}.build.{os.getpid()}")
     t0 = time.perf_counter()
-    subprocess.run(
+    proc = subprocess.run(
         [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         "-o", str(tmp), str(src)], check=True)
+         "-o", str(tmp), str(src)], capture_output=True, text=True)
+    build_log[name] = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{build_log[name]}")
     os.replace(tmp, so)
     build_seconds[name] = time.perf_counter() - t0
     return so

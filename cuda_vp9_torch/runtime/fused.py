@@ -23,10 +23,12 @@ place to keep one copy of the pool on the device):
   (misc[5:13]) and ring row misc[13].
 
 On a CUDA pool the residual transforms (`ops/cuda/residual.py`, one
-launch per bucket), the intra wavefront (`ops/cuda/intra.py`, one host
-call per frame that enqueues a grid per chunk) and the loop filter are
-hand-written kernels; MC, the mask add and the refresh are torch ops.
-On a CPU pool each kernel's plain torch twin runs instead.
+launch per bucket), MC (`ops/cuda/mc.py`, one host call per frame that
+enqueues a grid per class and landing phase), the intra wavefront
+(`ops/cuda/intra.py`, one host call per frame that enqueues a grid per
+chunk) and the loop filter are hand-written kernels; the mask add, the
+refresh and the ring are torch ops.  On a CPU pool each kernel's plain
+torch twin runs instead.
 
 Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
 transforms run in the int32 WRAPLOW domain; the ring is int16.  The loop
@@ -39,7 +41,8 @@ The pool canvas [pha, pwa] may exceed the frame canvas [ha, wa] when
 scaled references are live; each slot then holds its frame in the
 top-left corner, as in JAX.  MC reads the pool directly with the
 normative edge clamps (ops/ref/inter.convolve_block semantics); the
-TPU's one-hot band formulation is not ported.
+TPU's one-hot band formulation (and with it the headers' row band) is
+not ported.
 
 `flat` is the HOST numpy buffer.  The step uploads it once and reads
 every loop bound (the misc trip counts, lf_on, the refresh flags, the
@@ -64,8 +67,8 @@ from .. import models as M
 from ..ops.cuda.intra import intra_pass, intra_pass_batched
 from ..ops.cuda.lf422 import lf_chroma_422
 from ..ops.cuda.loopfilter import lf_frame, lf_frames
+from ..ops.cuda.mc import grid_bounds, mc_frame
 from ..ops.cuda.residual import residual_bucket, residual_coo
-from ..ops.device.blocks import block_index, put_blocks
 from . import pack
 
 I32 = torch.int32
@@ -102,134 +105,6 @@ def frame_buffer(ha: int, wa: int, device) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- inter
-
-
-def mc_predict(pool, kernels, hdr, u, w: int, bd: int):
-    """8-tap sub-pel prediction of N w x w tiles (ops/ref/inter
-    convolve_block semantics; counterpart of fused._mc_chunk_compute).
-
-    pool [S, 3, pha, pwa] int32 (S = 8 slots, or 8N for the pools of N
-    streams, slot 8s + i); kernels [4, 16, 8] int32; hdr [N, 8]
-    each tile's chunk header (slot, plane, srow, cw, chh, ...); u [N, 4]
-    wire records (dx | filt << 13, dy + 1, sr, sc) with sr / sc =
-    ((src - dst) << 4) | subpel.  Reads rows clip(y0 - 3 + i, 0, chh - 1)
-    and columns clip(x0 - 3 + j, 0, cw - 1) of pool[slot, plane], filters
-    horizontally (rounded and clipped), then vertically.  Returns
-    [N, w, w] int32; padded records (dy + 1 == 0) give unspecified
-    values."""
-    dev = u.device
-    pha, pwa = pool.shape[2], pool.shape[3]
-    valid = u[:, 1] != 0
-    filt = torch.where(valid, u[:, 0] >> 13, 0) & 3
-    x0 = (u[:, 0] & 0x1FFF) + (u[:, 3] >> 4)     # sc >> 4: arithmetic
-    y0 = u[:, 1] - 1 + (u[:, 2] >> 4)
-    slot = torch.where(valid, hdr[:, 0], 0).clamp(0, pool.shape[0] - 1)
-    plane = torch.where(valid, hdr[:, 1], 0).clamp(0, 2)
-    cw = torch.where(valid, hdr[:, 3], 1).clamp(1, pwa)
-    chh = torch.where(valid, hdr[:, 4], 1).clamp(1, pha)
-    t = torch.arange(w + 7, device=dev)[None, :]
-    rows = torch.minimum((y0[:, None] - 3 + t).clamp(min=0), chh[:, None] - 1)
-    cols = torch.minimum((x0[:, None] - 3 + t).clamp(min=0), cw[:, None] - 1)
-    base = (slot * 3 + plane) * pha
-    lin = (((base[:, None] + rows).long() * pwa)[:, :, None]
-           + cols.long()[:, None, :])
-    win = pool.reshape(-1)[lin]                   # [N, w+7, w+7]
-    fx = kernels[filt.long(), (u[:, 3] & 15).long()]     # [N, 8]
-    fy = kernels[filt.long(), (u[:, 2] & 15).long()]
-    maxv = (1 << bd) - 1
-    acc = fx[:, 0, None, None] * win[:, :, 0:w]
-    for k in range(1, 8):
-        acc = acc + fx[:, k, None, None] * win[:, :, k:k + w]
-    temp = ((acc + 64) >> 7).clamp(0, maxv)       # [N, w+7, w]
-    acc = fy[:, 0, None, None] * temp[:, 0:w, :]
-    for k in range(1, 8):
-        acc = acc + fy[:, k, None, None] * temp[:, k:k + w, :]
-    return ((acc + 64) >> 7).clamp(0, maxv)
-
-
-def mcs_predict(pool, kernels, hdr, u, bd: int):
-    """Scaled-reference 4x4 prediction of N tiles (counterpart of
-    fused._mcs_chunk_compute; vpx_scaled_2d semantics).  u [N, 16] wire
-    records: x0 = u[4], y0 = u[5] source origin, spx / spy = u[6] / u[7]
-    base phases, filt = u[8], crop cw / chh = u[9] / u[10], x / y step
-    q4 = u[12] / u[13] (<= 32).  Column c reads source column
-    x0 + ((spx + c * xs) >> 4) with phase (spx + c * xs) & 15; the 14
-    intermediate rows are clip(y0 - 3 + i, 0, chh - 1), and output row r
-    filters intermediate rows ((spy + r * ys) >> 4) + k.  Returns [N, 4, 4]
-    int32; padded records (u[2] == 0) give unspecified values."""
-    dev = u.device
-    pha, pwa = pool.shape[2], pool.shape[3]
-    valid = u[:, 2] != 0
-    filt = torch.where(valid, u[:, 8], 0).clamp(0, 3).long()
-    slot = torch.where(valid, hdr[:, 0], 0).clamp(0, 7)
-    plane = torch.where(valid, hdr[:, 1], 0).clamp(0, 2)
-    cw = torch.where(valid, u[:, 9], 1).clamp(1, pwa)
-    chh = torch.where(valid, u[:, 10], 1).clamp(1, pha)
-    xs = torch.where(valid, u[:, 12], 16).clamp(0, 32)
-    ys = torch.where(valid, u[:, 13], 16).clamp(0, 32)
-    c4 = torch.arange(4, device=dev)[None, :]
-    k8 = torch.arange(8, device=dev)
-    xq4 = u[:, 6, None] + c4 * xs[:, None]                    # [N, 4]
-    cols = torch.minimum(
-        ((u[:, 4, None] + (xq4 >> 4))[:, :, None] + k8 - 3).clamp(min=0),
-        cw[:, None, None] - 1)                                # [N, 4, 8]
-    rows = torch.minimum(
-        (u[:, 5, None] - 3 + torch.arange(14, device=dev)).clamp(min=0),
-        chh[:, None] - 1)                                     # [N, 14]
-    base = (slot * 3 + plane) * pha
-    lin = (((base[:, None] + rows).long() * pwa)[:, :, None, None]
-           + cols.long()[:, None, :, :])
-    win = pool.reshape(-1)[lin]                               # [N, 14, 4, 8]
-    fx = kernels[filt[:, None], (xq4 & 15).long()]            # [N, 4, 8]
-    maxv = (1 << bd) - 1
-    temp = (((fx[:, None] * win).sum(3) + 64) >> 7).clamp(0, maxv)
-    yq4 = u[:, 7, None] + c4 * ys[:, None]                    # [N, 4]
-    fy = kernels[filt[:, None], (yq4 & 15).long()]            # [N, 4, 8]
-    trow = ((yq4 >> 4)[:, :, None] + k8).clamp(0, 13).long()  # [N, 4, 8]
-    taps = temp[torch.arange(u.shape[0], device=dev)[:, None, None],
-                trow]                                         # [N, 4, 8, 4]
-    acc = (fy[:, :, :, None] * taps).sum(2, dtype=I32)
-    return ((acc + 64) >> 7).clamp(0, maxv)
-
-
-def _land(Fbuf, pred, plane, y0, x0, valid, n0: int, ha: int, wa: int):
-    """Land one MC class's predictions (fused._mc_pass): tiles [0, n0)
-    are first-reference predictions with distinct destinations, tiles
-    [n0, N) compound second predictions that average into them."""
-    args = (plane, y0, x0, valid)
-    if n0:
-        put_blocks(Fbuf, *(a[:n0] for a in args), pred[:n0], ha, wa)
-    if n0 < pred.shape[0]:
-        rest = [a[n0:] for a in args]
-        cur = Fbuf[block_index(Fbuf, *rest, pred.shape[1], pred.shape[2],
-                               ha, wa)]
-        put_blocks(Fbuf, *rest, (cur + pred[n0:] + 1) >> 1, ha, wa)
-
-
-def mc_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
-            w: int, bd: int, ha: int, wa: int):
-    """One unscaled MC tile class: units [CAPC, CH, 4], hdrs [CAPC, 8];
-    chunks from n_ref0 on are compound second predictions."""
-    CH = units.shape[1]
-    u = units[:n_chunks].reshape(-1, 4)
-    hd = hdrs[:n_chunks].repeat_interleave(CH, 0)
-    pred = mc_predict(pool, kernels, hd, u, w, bd)
-    _land(Fbuf, pred, hd[:, 1], u[:, 1] - 1, u[:, 0] & 0x1FFF, u[:, 1] != 0,
-          n_ref0 * CH, ha, wa)
-
-
-def mcs_pass(Fbuf, pool, kernels, units, hdrs, n_chunks: int, n_ref0: int,
-             bd: int, ha: int, wa: int):
-    """The scaled-reference 4x4 class (fused._mcs_pass): units
-    [CAPC, CH, 16] with (plane, dx, dy + 1) in columns 0..2, hdrs
-    [CAPC, 4].  Runs after the unscaled classes, so a compound average
-    with a scaled first reference sees its first prediction."""
-    CH = units.shape[1]
-    u = units[:n_chunks].reshape(-1, 16)
-    hd = hdrs[:n_chunks].repeat_interleave(CH, 0)
-    pred = mcs_predict(pool, kernels, hd, u, bd)
-    _land(Fbuf, pred, u[:, 0], u[:, 2] - 1, u[:, 1], u[:, 2] != 0,
-          n_ref0 * CH, ha, wa)
 
 
 def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int, ss=(1, 1)):
@@ -367,16 +242,23 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
                            lossless)
 
         with record_function("vp9.inter"):
-            for w, n_slot, r0_slot in MC_CLASSES:
-                n_chunks = int(misc[n_slot])
-                if n_chunks:
-                    mc_pass(Fbuf, pool, kernels, seg(f"mc{w}", n_chunks),
-                            seg(f"mc{w}h", n_chunks), n_chunks,
-                            int(misc[r0_slot]), w, bd, ha, wa)
-            if "mcs" in segs and misc[14]:
-                mcs_pass(Fbuf, pool, kernels, seg("mcs", int(misc[14])),
-                         seg("mcsh", int(misc[14])), int(misc[14]),
-                         int(misc[15]), bd, ha, wa)
+            # every class with chunks, then mcs: one kernel host call,
+            # as a batch of one stream ([1, n, ...] records, n_ref0 a
+            # device view of misc)
+            misc16 = seg("misc", dtype=torch.int16)
+
+            def mc_class(name, n, r0_slot):
+                return (seg(name, n, torch.int16)[None],
+                        seg(name + "h", n, torch.int16)[None], n,
+                        misc16[r0_slot:r0_slot + 1],
+                        grid_bounds([n], [int(misc[r0_slot])]))
+
+            classes = [(w, *mc_class(f"mc{w}", n, r0_slot))
+                       for w, n_slot, r0_slot in MC_CLASSES
+                       if (n := int(misc[n_slot]))]
+            n = int(misc[14]) if "mcs" in segs else 0
+            scaled = mc_class("mcs", n, 15) if n else None
+            mc_frame(Fbuf, pool, kernels, classes, scaled, None, bd, ha, wa)
             mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd, ss)
 
         with record_function("vp9.intra"):
@@ -492,7 +374,8 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
         Rbuf = torch.zeros_like(Fbuf)
         F = Fbuf[:-1].view(A, 3, ha, wa)
         R = Rbuf[:-1].view(A, 3, ha, wa)
-        poff = 3 * torch.arange(A, device=dev, dtype=I32)[:, None]
+        pool_s = pool.view(n_streams * 8, 3, ha, wa)
+        misc16 = seg("misc", dtype=torch.int16)
 
         with record_function("vp9.residual"):
             # each bucket one call over every stream's records; stream k's
@@ -501,36 +384,20 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
                            most, segs, ha, wa, bd, lossless)
 
         with record_function("vp9.inter"):
-            pool_s = pool.view(n_streams * 8, 3, ha, wa)
-            misc_d = seg("misc")
+            # every class with chunks in one kernel host call; chunks
+            # before each stream's own n_ref0 (read on the device) are
+            # first predictions, the others compound second ones
+            classes = []
             for w, n_slot, r0_slot in MC_CLASSES:
                 n = most(n_slot)
-                if not n:
-                    continue
-                u = seg(f"mc{w}", n)
-                ch = u.shape[2]
-                u = u.reshape(-1, 4)
-                hd = seg(f"mc{w}h", n)
-                plane = (hd[:, :, 1] + poff).repeat_interleave(ch, 1)
-                hd[:, :, 0] += 8 * act_d[:, None].to(I32)
-                # chunks before each stream's own n_ref0 are first
-                # predictions, the others compound second ones
-                first = (torch.arange(n, device=dev)[None, :]
-                         < misc_d[:, r0_slot, None]
-                         ).repeat_interleave(ch, 1).reshape(-1)
-                pred = mc_predict(pool_s, kernels,
-                                  hd.repeat_interleave(ch, 1).reshape(-1, 8),
-                                  u, w, bd)
-                plane = plane.reshape(-1)
-                y0, x0 = u[:, 1] - 1, u[:, 0] & 0x1FFF
-                valid = u[:, 1] != 0
-                put_blocks(Fbuf, plane, y0, x0, valid & first, pred,
-                           ha, wa)
-                second = valid & ~first
-                cur = Fbuf[block_index(Fbuf, plane, y0, x0, second, w, w,
-                                       ha, wa)]
-                put_blocks(Fbuf, plane, y0, x0, second,
-                           (cur + pred + 1) >> 1, ha, wa)
+                if n:
+                    classes.append((w, seg(f"mc{w}", n, torch.int16),
+                                    seg(f"mc{w}h", n, torch.int16), n,
+                                    misc16[:, r0_slot], grid_bounds(
+                                        [int(m[n_slot]) for m in miscs],
+                                        [int(m[r0_slot]) for m in miscs])))
+            mc_frame(Fbuf, pool_s, kernels, classes, None,
+                     up[A * nflat:A * nflat + A], bd, ha, wa)
             mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd)
 
         with record_function("vp9.intra"):
@@ -540,7 +407,7 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
                     Fbuf, Rbuf[:-1].view(3 * A, ha, wa),
                     seg("intra", n_intra, torch.int16),
                     seg("chunk_bs", n_intra, torch.int16),
-                    seg("misc", dtype=torch.int16)[:, 3], n_intra, bd)
+                    misc16[:, 3], n_intra, bd)
 
         with record_function("vp9.loopfilter"):
             lf_frames(F, seg("lfm", dtype=torch.int16),

@@ -1,7 +1,7 @@
-"""Seeded inputs that drive the intra and residual kernels down every
+"""Seeded inputs that drive the intra, residual and MC kernels down every
 path, for holding each kernel against its plain twin bit for bit
-(`chip_smoke.py`, the `cuda`-marked tests).  numpy only; each case is
-host arrays that the caller moves to the device it tests.
+(`chip_smoke.py`, the `cuda`-marked tests).  Each case is host numpy
+arrays that the caller moves to the device it tests.
 
 Intra (`intra_frame`, `intra_streams`): random frames and residuals with
 units of every block size 4..32 on a block grid, one chunk list per
@@ -18,11 +18,29 @@ tx_types, some padded records (cpos all zero), coefficients sparse and
 moderate or extreme (the full int16 range at 8 bits; up to the bd +
 8-bit WRAPLOW range above, and raw random high and low words), and for
 the coo buckets (index, value) pairs with (0, 0) padding pairs.
+
+MC (`mc_case`, `mc_args`, `mc_grids`, `MC_CASES`): the flats of 1 to 4 streams
+holding, per stream, the four unscaled tile classes and (one stream) the
+scaled class mcs as the packer lays them out (records, chunk headers,
+the chunk counts and first compound chunks in misc), over a random pool
+whose canvas may exceed the frame's and whose slots have random crops
+below it; destinations on the tile grid of planes 0..2 of a 4:2:0,
+4:4:4 or 4:2:2 layout, distinct within a landing phase; sources inside,
+near and past the crop on every side (negative sr and sc), every filter
+and phase, q4 steps 8..32 for mcs; padded records (dy + 1 == 0, other
+fields random) inside chunks, an all-zero chunk, compound chunks past
+n_ref0 that average into first predictions, random values in the header
+fields the port does not read; streams with different chunk counts and
+n_ref0, and the active streams a random subset of the pool's.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
+
+from ..ops.cuda.mc import grid_bounds
 
 
 def _record(x0, y0, plane, mode, n_above, n_left, tl_mode, have_up,
@@ -185,3 +203,250 @@ def residual_coo_case(rng, A, n_units, npairs, ha, wa, extreme=False):
     pos = np.stack([_positions(rng, n_units, 32, 3, ha, wa)
                     for _ in range(A)])
     return pairs.astype(np.int16), pos
+
+
+# ----------------------------------------------------------------- MC
+
+# (tile size, misc slot of the chunk count, misc slot of the first
+# compound chunk) per unscaled class, as runtime/fused.MC_CLASSES; the
+# scaled class's slots are 14 and 15
+MC_SLOTS = ((4, 0, 23), (8, 1, 24), (16, 2, 25), (32, 33, 34))
+MC_CHUNKS = (256, 128, 64, 32, 128)   # pack.CHUNK_MC4..32, CHUNK_MCS
+
+# (bd, chroma (ss_x, ss_y), ha, wa, pool canvas padding (rows, cols),
+# streams, chunk lengths or None for MC_CHUNKS, scaled class)
+MC_CASES = [
+    (8, (1, 1), 64, 64, (0, 0), 1, (16, 8, 4, 4, 8), True),
+    (10, (0, 0), 96, 64, (16, 32), 1, (16, 8, 4, 4, 8), True),
+    (12, (1, 0), 64, 96, (8, 8), 1, (16, 8, 4, 4, 8), True),
+    (8, (1, 1), 144, 176, (32, 48), 1, None, True),
+    (10, (1, 1), 64, 64, (0, 0), 3, (16, 8, 4, 4, 8), False),
+    (8, (1, 1), 96, 96, (0, 0), 4, None, False),
+]
+
+
+def mc_seg(flats, segs, name, rows):
+    """The [A, rows, ...] view of the first `rows` rows of a segment of
+    every flat; numpy or torch (flats on a device)."""
+    off, shape = segs[name]
+    size = rows * int(np.prod(shape[1:]))
+    return flats[:, off:off + size].reshape(flats.shape[0], rows,
+                                            *shape[1:])
+
+
+def mc_args(case, flats, k=None):
+    """(classes, scaled) for ops/cuda/mc.mc_frame: with k, stream k's
+    alone (views of flats[k:k + 1], the scaled class included); with k
+    None, every stream's (n the most chunks), scaled None.  Each
+    stream's n_ref0 is a view of its misc, beside the host bounds.
+    flats: case.flats or that array on a device."""
+    misc = case.misc
+    if k is not None:
+        flats, misc = flats[k:k + 1], misc[k:k + 1]
+
+    def cls(name, ns, rs):
+        n = int(misc[:, ns].max())
+        return (mc_seg(flats, case.segs, name, n),
+                mc_seg(flats, case.segs, name + "h", n), n,
+                mc_seg(flats, case.segs, "misc", 48)[:, rs],
+                grid_bounds([int(x) for x in misc[:, ns]],
+                            [int(x) for x in misc[:, rs]]))
+
+    classes = [(w, *cls(f"mc{w}", ns, rs)) for w, ns, rs in MC_SLOTS
+               if misc[:, ns].max()]
+    scaled = None
+    if k is not None and "mcs" in case.segs and misc[0, 14]:
+        scaled = cls("mcs", 14, 15)
+    return classes, scaled
+
+
+def mc_grids(case):
+    """(all, scaled): the grids vp9_mc_pass enqueues for case's classes
+    (mc_frame's of its one stream, or of its streams), and those of the
+    scaled class among them: per class with chunks, one for its firsts
+    and one for its compound chunks, if any."""
+    classes, scaled = mc_args(case, case.flats,
+                              0 if len(case.flats) == 1 else None)
+
+    def grids(c):
+        n, (lo, hi) = c[-3], c[-1]
+        return (min(hi, n) > 0) + (lo < n)
+
+    ns = grids(scaled) if scaled is not None else 0
+    return sum(grids(c) for c in classes) + ns, ns
+
+
+def _tile_grid(rng, w, hp, wp, n):
+    """Up to n distinct w-aligned (dy, dx) of an hp x wp plane region."""
+    ys, xs = np.meshgrid(np.arange(0, hp - w + 1, w),
+                         np.arange(0, wp - w + 1, w), indexing="ij")
+    cells = np.stack([ys.ravel(), xs.ravel()], 1)
+    return cells[rng.permutation(len(cells))[:n]]
+
+
+def _source(rng, d, w, crop):
+    """Source origins for destinations d: near them, or anywhere from
+    past the crop's start to past its end, within int16 of d after the
+    shift by 4."""
+    near = d + rng.integers(-24, 25, len(d))
+    far = rng.integers(-12 - w - 8, crop + 20, len(d))
+    return np.clip(np.where(rng.random(len(d)) < 0.5, near, far), d - 2000,
+                   d + 2000)
+
+
+def _chunks(rng, tiles, ch, make):
+    """Chunk records [n, ch, rw] of `tiles` (plane, dy, dx, ...) grouped
+    by plane: each chunk takes 1..ch of one plane's tiles at random record
+    positions, the other records padding (dy + 1 == 0, the rest random);
+    make(rng, group) gives a group's records.  Returns (records,
+    planes)."""
+    recs, planes = [], []
+    for p in (0, 1, 2):
+        t = [x for x in tiles if x[0] == p]
+        while t:
+            m = int(rng.integers(1, ch + 1))
+            group, t = t[:m], t[m:]
+            r = make(rng, group)
+            out = rng.integers(-32768, 32768, (ch, r.shape[1])).astype(
+                np.int16)
+            out[:, 1 if r.shape[1] == 4 else 2] = 0
+            out[rng.choice(ch, len(group), replace=False)] = r
+            recs.append(out)
+            planes.append(p)
+    return recs, planes
+
+
+def mc_case(rng, bd, ss, ha, wa, pad, n_streams, chunks=None,
+            scaled=True):
+    """The inputs of one MC case, a namespace of: pool int32 [8 P, 3,
+    pha, pwa] (P >= n_streams pools), F int32 [3 A, ha, wa] the frames
+    the predictions land in (stream k at planes 3k .. 3k + 2), flats
+    int16 [A, nflat] with segs {name: (off, shape)} ("misc", "mc{w}",
+    "mc{w}h", "mcs", "mcsh"), active int16 [A] (stream k reads pool
+    slots 8 active[k] + slot), misc int64 [A, 48], and bd, ha, wa.  Per
+    stream a random number of tiles a class (so chunk counts and n_ref0
+    differ between streams), about a third of them predicted twice
+    (compound)."""
+    chunks = chunks or MC_CHUNKS
+    pha, pwa = ha + pad[0], wa + pad[1]
+    n_pool = n_streams + (n_streams > 1)
+    pool = rng.integers(0, 1 << bd, (8 * n_pool, 3, pha, pwa)).astype(
+        np.int32)
+    crop = np.stack([rng.integers(max(8, pha // 2), pha + 1, 8 * n_pool),
+                     rng.integers(max(8, pwa // 2), pwa + 1, 8 * n_pool)], 1)
+    region = [(ha, wa), (ha >> ss[1], wa >> ss[0]), (ha >> ss[1], wa >> ss[0])]
+    active = rng.permutation(n_pool)[:n_streams].astype(np.int16)
+    F = rng.integers(0, 1 << bd, (3 * n_streams, ha, wa)).astype(np.int32)
+
+    def hdr(rng, s, p, width):
+        """A chunk header of stream s for plane p: a random slot, its
+        plane's crop, random words the port does not read."""
+        h = rng.integers(-32768, 32768, width).astype(np.int16)
+        slot = int(rng.integers(0, 8))
+        h[0], h[1] = slot, p
+        if width == 8:
+            cw, chh = crop[8 * s + slot, 1], crop[8 * s + slot, 0]
+            h[3] = (cw + ss[0]) >> ss[0] if p else cw
+            h[4] = (chh + ss[1]) >> ss[1] if p else chh
+        return h
+
+    per_stream = []
+    for k in range(n_streams):
+        s = int(active[k])
+        segs = {}
+        for (w, _, _), ch in zip(MC_SLOTS, chunks):
+            n_t = int(rng.integers(4, 40))
+            tiles = [(p, int(dy), int(dx))
+                     for p in (0, 1, 2)
+                     for dy, dx in _tile_grid(rng, w, *region[p], n_t // 3
+                                              + (p == 0) * (n_t % 3))]
+
+            def make(rng, group, w=w):
+                p = group[0][0]
+                d = np.asarray([(dy, dx) for _, dy, dx in group])
+                c = (crop[8 * s:8 * s + 8].min(0) >> (ss[::-1] if p
+                                                       else (0, 0)))
+                y0 = _source(rng, d[:, 0], w, int(c[0]))
+                x0 = _source(rng, d[:, 1], w, int(c[1]))
+                r = np.zeros((len(group), 4), np.int64)
+                r[:, 0] = d[:, 1] | rng.integers(0, 4, len(group)) << 13
+                r[:, 1] = d[:, 0] + 1
+                r[:, 2] = (y0 - d[:, 0]) << 4 | rng.integers(0, 16,
+                                                             len(group))
+                r[:, 3] = (x0 - d[:, 1]) << 4 | rng.integers(0, 16,
+                                                             len(group))
+                return r.astype(np.int16)
+
+            first, fp = _chunks(rng, tiles, ch, make)
+            seconds = [tiles[i] for i in rng.permutation(len(tiles))[
+                :len(tiles) // 3]]
+            second, sp = _chunks(rng, seconds, ch, make)
+            if w == 8:                           # an all-zero chunk
+                first.append(np.zeros((ch, 4), np.int16))
+                fp.append(0)
+            recs = first + second
+            hdrs = [hdr(rng, s, p, 8) for p in fp + sp]
+            segs[w] = (np.stack(recs), np.stack(hdrs), len(recs), len(first))
+        if scaled and k == 0:
+            n_t = int(rng.integers(8, 40))
+            tiles = [(p, int(dy), int(dx)) for p in (0, 1, 2)
+                     for dy, dx in _tile_grid(rng, 4, *region[p], n_t // 3)]
+
+            def make_s(rng, group):
+                p = group[0][0]
+                n = len(group)
+                c = crop[8 * s:8 * s + 8].min(0) >> (1 if p else 0)
+                r = rng.integers(-32768, 32768, (n, 16))
+                r[:, 0] = p
+                r[:, 1] = [dx for _, _, dx in group]
+                r[:, 2] = [dy + 1 for _, dy, _ in group]
+                r[:, 4] = rng.integers(-20, c[1] + 12, n)
+                r[:, 5] = rng.integers(-20, c[0] + 12, n)
+                r[:, 6:8] = rng.integers(0, 16, (n, 2))
+                r[:, 8] = rng.integers(0, 4, n)
+                r[:, 9], r[:, 10] = c[1], c[0]
+                r[:, 12:14] = rng.integers(8, 33, (n, 2))
+                return r.astype(np.int16)
+
+            first, fp = _chunks(rng, tiles, chunks[4], make_s)
+            seconds = [tiles[i] for i in rng.permutation(len(tiles))[
+                :len(tiles) // 3]]
+            second, sp = _chunks(rng, seconds, chunks[4], make_s)
+            segs["s"] = (np.stack(first + second),
+                         np.stack([hdr(rng, s, p, 4) for p in fp + sp]),
+                         len(first) + len(second), len(first))
+        per_stream.append(segs)
+
+    # the flats: misc, then each class's records and headers at the most
+    # chunks of any stream plus one, zero past a stream's own
+    layout, off = {"misc": (0, (48,))}, 48
+    for (w, _, _), ch in zip(MC_SLOTS, chunks):
+        cap = max(st[w][2] for st in per_stream) + 1
+        layout[f"mc{w}"] = (off, (cap, ch, 4))
+        off += cap * ch * 4
+        layout[f"mc{w}h"] = (off, (cap, 8))
+        off += cap * 8
+    if scaled:
+        cap = per_stream[0]["s"][2] + 1
+        layout["mcs"] = (off, (cap, chunks[4], 16))
+        off += cap * chunks[4] * 16
+        layout["mcsh"] = (off, (cap, 4))
+        off += cap * 4
+    flats = np.zeros((n_streams, off + 40), np.int16)
+    for k, st in enumerate(per_stream):
+        misc = flats[k, :48]
+        for w, ns, rs in MC_SLOTS:
+            rec, hd, n, n0 = st[w]
+            for name, a in ((f"mc{w}", rec), (f"mc{w}h", hd)):
+                o = layout[name][0]
+                flats[k, o:o + a.size] = a.reshape(-1)
+            misc[ns], misc[rs] = n, n0
+        if "s" in st:
+            rec, hd, n, n0 = st["s"]
+            for name, a in (("mcs", rec), ("mcsh", hd)):
+                o = layout[name][0]
+                flats[k, o:o + a.size] = a.reshape(-1)
+            misc[14], misc[15] = n, n0
+    return SimpleNamespace(pool=pool, F=F, flats=flats, segs=layout,
+                           active=active, misc=flats[:, :48].astype(np.int64),
+                           bd=bd, ha=ha, wa=wa)

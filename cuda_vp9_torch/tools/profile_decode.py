@@ -12,9 +12,10 @@ steps), then:
     edge, and the host wall time inside each span is summed.  Prints the
     frame rate of this pass and each stage's milliseconds and share, and
     the kernels' counters over the pass: the launches of the loop filter
-    (lf_frame, lf_chroma_422), the residual kernel and the intra kernel
-    (grids, and the host calls that enqueued them), and the calls of each
-    plain twin (0 on a CUDA device);
+    (lf_frame, lf_chroma_422) and the residual kernel, the grids of the MC
+    kernel (and of its scaled class among them) and of the intra kernel,
+    with the host calls that enqueued them, and the calls of each plain
+    twin (0 on a CUDA device);
   * with --profile-frames K, decodes the first K frames under
     torch.profiler and prints the kernel launches, the device time of
     all kernels and copies, the device's busy share (that time over the
@@ -44,11 +45,12 @@ from ..containers import open_video
 from ..ops.cuda import intra as IN
 from ..ops.cuda import lf422 as L4
 from ..ops.cuda import loopfilter as LF
+from ..ops.cuda import mc as MC
 from ..ops.cuda import residual as RS
 from ..utils.md5 import frame_md5
 from ..runtime import fused
 
-_KERNELS = (LF, L4, RS, IN)
+_KERNELS = (LF, L4, RS, MC, IN)
 
 
 def decode(path: str, device: str, limit: int = 0, streams: int = 1):
@@ -165,8 +167,10 @@ def main(argv=None):
     print(f"  {'outside step':16s} {rest * 1e3:10.1f} ms  {rest / wall:6.1%}"
           "  (parse, pack, read-back)")
     print(f"  kernel launches: lf_frame {LF.launches}, lf_chroma_422 "
-          f"{L4.launches}, residual {RS.launches}, intra {IN.launches} "
-          f"grids in {IN.host_calls} host calls; plain calls: "
+          f"{L4.launches}, residual {RS.launches}, mc {MC.launches} grids "
+          f"({MC.scaled_launches} scaled) in {MC.host_calls} host calls, "
+          f"intra {IN.launches} grids in {IN.host_calls} host calls; plain "
+          "calls: "
           + ", ".join(f"{k.__name__.rsplit('.', 1)[1]} {k.plain_calls}"
                       for k in _KERNELS))
     if args.profile_frames:

@@ -1,5 +1,6 @@
-"""The port's motion compensation (cuda_vp9_torch/runtime/fused.py) against
-the JAX step's MC (`cuda_vp9_tpu/runtime/fused.py`).
+"""The plain twins of the port's motion compensation
+(cuda_vp9_torch/ops/cuda/mc.py) against the JAX step's MC
+(`cuda_vp9_tpu/runtime/fused.py`).
 
 Per tile: `mc_predict` against `_mc_chunk_compute` for the 4, 8, 16 and
 32 classes, and `mcs_predict` against `_mcs_chunk_compute` for the
@@ -14,7 +15,7 @@ import torch
 
 import jax
 
-from cuda_vp9_torch.runtime import fused as TF
+from cuda_vp9_torch.ops.cuda import mc as MC
 from cuda_vp9_tpu import models as M
 from cuda_vp9_tpu.runtime import fused as JF
 
@@ -65,7 +66,7 @@ def test_mc_predict_matches_jax(w):
     fn = jax.jit(lambda p, k, hd, u: JF._mc_chunk_compute(
         p, k, hd, u, w, w, min(160, PHA), 8))
     want = np.asarray(fn(pool, KERNELS, hd, u))
-    got = TF.mc_predict(torch.from_numpy(pool), torch.from_numpy(KERNELS),
+    got = MC.mc_predict(torch.from_numpy(pool), torch.from_numpy(KERNELS),
                         torch.from_numpy(np.tile(hd, (n, 1))),
                         torch.from_numpy(u), w, 8)
     assert np.array_equal(got.numpy(), want)
@@ -91,7 +92,7 @@ def test_mcs_predict_matches_jax():
     fn = jax.jit(lambda p, k, hd, u: JF._mcs_chunk_compute(
         p, k, hd, u, min(160, PHA), 8))
     want = np.asarray(fn(pool, KERNELS, hd, u))
-    got = TF.mcs_predict(torch.from_numpy(pool), torch.from_numpy(KERNELS),
+    got = MC.mcs_predict(torch.from_numpy(pool), torch.from_numpy(KERNELS),
                          torch.from_numpy(np.tile(hd, (n, 1))),
                          torch.from_numpy(u), 8)
     assert np.array_equal(got.numpy(), want)
@@ -128,9 +129,9 @@ def test_mc_pass_matches_jax(w):
 
     Fbuf = torch.zeros(F0.size + 1, dtype=torch.int32)
     Fbuf[:-1] = torch.from_numpy(F0).reshape(-1)
-    TF.mc_pass(Fbuf, torch.from_numpy(pool), torch.from_numpy(KERNELS),
-               torch.from_numpy(units), torch.from_numpy(hdrs), n_chunks,
-               n_ref0, w, 8, ha, wa)
+    MC.mc_pass(Fbuf, torch.from_numpy(pool), torch.from_numpy(KERNELS),
+               torch.from_numpy(units)[None], torch.from_numpy(hdrs)[None],
+               n_chunks, torch.tensor([n_ref0]), None, w, 8, ha, wa)
     got = Fbuf[:-1].reshape(3, ha, wa).numpy()
     bad = np.argwhere(got != want)
     assert bad.size == 0, f"{len(bad)} pixels differ, first at {bad[0]}"
