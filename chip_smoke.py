@@ -25,19 +25,21 @@ Phases, each of which exits non-zero on failure:
          untouched);
        - the tile probe at [200, 200] against tile_probe_plain and the
          probe's NumPy reference;
-       - the intra kernel (K4) against intra_pass_plain on the inputs of
-         tools/kernel_cases.py (every block size 4 to 32, all 10 modes,
-         partial availability, the three tl_modes, units on and across
-         the right and bottom edges, padded records) at bit depths 8, 10
-         and 12 on a 64x64 canvas and at 10 bits on the 1920x1088 canvas
-         with 256-unit chunks, and its batched form on 4 stacked frames
-         whose chunk index i mixes block sizes, against
-         intra_pass_batched_plain; one host call per pass, one grid per
-         chunk;
-       - the residual kernel (K2) against its plain twin on every bucket
-         of pack.COEFF_BUCKETS, the WHT and (8 bits) the two coo buckets,
-         at bit depths 8, 10 and 12, with moderate and extreme inputs and
-         padded records, for one stream and for three in one call;
+       - the persistent intra kernel (K4) against intra_pass_plain on the
+         inputs of tools/kernel_cases.py (every block size 4 to 32, all 10
+         modes, partial availability, the three tl_modes, units on and
+         across the right and bottom edges, padded records) at bit depths
+         8, 10 and 12 on a 64x64 canvas, at 10 bits on the 1920x1088
+         canvas with 256-unit chunks, on a single chunk and on a 256x256
+         frame of 4x4 units only, and its batched form on 4 stacked
+         frames whose chunk index i mixes block sizes and whose streams
+         have different chunk counts, against intra_pass_batched_plain;
+         one host call and one launch per pass;
+       - the residual kernel (K2), one launch for a whole bucket set
+         (every bucket of pack.COEFF_BUCKETS, the WHT and at 8 bits the
+         two coo buckets, no two units at one position), against the
+         per-bucket twins at bit depths 8, 10 and 12, with moderate and
+         extreme inputs and padded records, for one stream and for three;
        - the MC kernel (K3, and K6 for the scaled class) against its
          plain twins on every case of kernel_cases.MC_CASES and on two
          large ones (1920x1088 at 10 bits with the HD chunk lengths, and
@@ -61,8 +63,9 @@ Phases, each of which exits non-zero on failure:
          chroma kernel on p1_02 and p1_04, the intra and the residual
          kernels on every stream (each starts with a keyframe), the MC
          kernel on every stream (each has inter frames) and its scaled
-         class on cp01, the intra and the MC kernels from at most one host
-         call per frame each, and no plain version ever;
+         class on cp01, the intra and the residual kernels with at most
+         one launch per frame each (intra: one per host call), MC from at
+         most one host call per frame, and no plain version ever;
        - the tile probe through its entry point (tools/tile_probe.py),
          checked against the probe's NumPy reference;
        - the multi-stream decoders (runtime/multistream.py), each run on
@@ -75,15 +78,17 @@ Phases, each of which exits non-zero on failure:
          device (on in02 + sc01: as many on the host as a TorchRecon gives
          sc01 alone), and when every frame joined the batch the loop
          filter must have launched once per round with a level, as the
-         port's parser reads the headers, and the intra and the MC kernels
-         from at most one host call per round each; no plain version
-         ever;
+         port's parser reads the headers, the intra and the residual
+         kernels with at most one launch per round each and MC from at
+         most one host call per round; no plain version ever;
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
      residual kernels on hd01's keyframe as the frame step feeds them
-     (its residual buckets, then its 2703 intra chunks), beside the gap
-     of one dependent empty launch; the MC kernel on nc03's busiest
+     (its residual buckets in one launch, then its 2703 intra chunks in
+     one), beside the intra chain's hand-off floor (the same chain with
+     no work) and the gap of one dependent empty launch, with ptxas's
+     registers, spills and shared memory of both kernels; the MC kernel on nc03's busiest
      inter frame, on hd01's first inter frame and (the scaled class
      alone) on cp01's busiest scaled frame, as the frame step feeds it,
      each held against the twins; each timed run of the loop filter is
@@ -135,10 +140,14 @@ MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
 RESIZE = ("in02_352x288", "sc01_352x288_scaled")
 MSD = ("kf01_64x64", "kf03_odd_98x66")
 KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc")
-# intra kernel cases: (bd, ha, wa, ich, block size code of planes 0..2)
-INTRA_CASES = [(bd, 64, 64, 64, codes) for bd in (8, 10, 12)
+# intra kernel cases: (bd, ha, wa, ich, block size code of planes 0..2,
+# chunks kept): every block size at every bit depth, the 1080p canvas
+# with 256-unit chunks, a single chunk, and chunks of 4x4 units only
+INTRA_CASES = [(bd, 64, 64, 64, codes, None) for bd in (8, 10, 12)
                for codes in ((0, 1, 2), (3, 2, 1))] + [
-                   (10, 1088, 1920, 256, (0, 3, 1))]
+                   (10, 1088, 1920, 256, (0, 3, 1), None),
+                   (10, 64, 64, 64, (3, 2, 1), 1),
+                   (8, 256, 256, 64, (0, 0, 0), None)]
 KEYFRAME = "hd01_1920x1080_t4"        # the timed intra and residual inputs
 # MC cases beyond kernel_cases.MC_CASES (its fields): the 1080p canvas
 # with the chunk lengths of HD and above, and a batched round of 16
@@ -460,11 +469,13 @@ def residual_work(buckets, bd):
 
 
 def keyframe_flat(name):
-    """(flat, layout, mi_rows, mi_cols) of frame 0 of a fixture, packed by
-    the port's native packer at the full tier, as TorchRecon packs it;
-    the frame itself is decoded by a TorchRecon on the card."""
+    """(flat, layout, mi_rows, mi_cols, n_waves) of frame 0 of a fixture,
+    packed by the port's native packer at the full tier, as TorchRecon
+    packs it, and its intra wave count (plan.build_intra_units); the
+    frame itself is decoded by a TorchRecon on the card."""
     from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
     from cuda_vp9_torch.runtime import fused
+    from cuda_vp9_torch.runtime import plan as planlib
     from cuda_vp9_torch.runtime.pipeline import TorchRecon
     recon, out = TorchRecon("cuda"), {}
 
@@ -472,11 +483,12 @@ def keyframe_flat(name):
         h = plan.hdr
         _, caps, layout = fused.get_frame_step(h.mi_rows, h.mi_cols, "full")
         out.update(flat=plan.native_parser.pack(plan, refs, caps, layout),
-                   layout=layout, mi=(h.mi_rows, h.mi_cols))
+                   layout=layout, mi=(h.mi_rows, h.mi_cols),
+                   waves=planlib.build_intra_units(plan)[1])
         return recon(plan, refs)
 
     NativeVp9Decoder(recon_fn=recon_fn).decode(packets(name)[0])
-    return out["flat"], out["layout"], *out["mi"]
+    return out["flat"], out["layout"], *out["mi"], out["waves"]
 
 
 def cuda_ms(fn, reps: int, setup=None, after=None) -> float:
@@ -581,8 +593,9 @@ def multi_stream_paths(LF, counted):
               f"{sum(r['device'] for r in st)}, on host "
               f"{sum(r['host'] for r in st)}, frames_unbatched {unbatched}, "
               f"lf_frames launches {LF.launches} (rounds with a level: "
-              f"{want}), intra grids {IN.launches} in {IN.host_calls} host "
-              f"calls, residual launches {RS.launches}, mc grids "
+              f"{want}), intra launches {IN.launches} ({IN.chunks} chunks) in "
+              f"{IN.host_calls} host calls, residual launches {RS.launches} "
+              f"({RS.buckets} buckets), mc grids "
               f"{MC.launches} ({MC.scaled_launches} scaled) in "
               f"{MC.host_calls} host calls, plain calls "
               f"{[k.plain_calls for k in counted]}, cold {dt:.2f} s "
@@ -591,12 +604,13 @@ def multi_stream_paths(LF, counted):
                 len(m) != len(golden_md5(n)[:rounds]) for n, m in zip(
                     names, md5s)):
             raise SystemExit(f"batched {label}: decode check failed")
-        if not IN.launches or not RS.launches or not MC.launches \
-                or not 0 < IN.host_calls <= bd.rounds + unbatched \
-                or not 0 < MC.host_calls <= bd.rounds + unbatched:
+        if not 0 < IN.launches == IN.host_calls <= bd.rounds + unbatched \
+                or not 0 < RS.launches <= bd.rounds + unbatched \
+                or not 0 < MC.host_calls <= bd.rounds + unbatched \
+                or not MC.launches:
             raise SystemExit(f"batched {label}: the intra, residual or MC "
-                             "kernel never ran, or intra or MC took more "
-                             "than one host call a round")
+                             "kernel never ran, or intra or residual made "
+                             "more than one launch (MC: host call) a round")
         if names is RESIZE:
             alone = TorchRecon("cuda")
             dec = NativeVp9Decoder(recon_fn=alone)
@@ -645,19 +659,22 @@ def frame_buf(dev, F):
 
 
 def intra_vs_plain(rng, dev, IN, KC) -> int:
-    """Phase 2: the intra kernel against intra_pass_plain on every case of
-    INTRA_CASES, and its batched form against intra_pass_batched_plain on
-    4 stacked 64x64 frames at bit depths 8, 10 and 12; each pass one host
-    call and one grid per chunk.  Exits on a difference; returns the
-    largest error (0)."""
-    for bd, ha, wa, ich, codes in INTRA_CASES:
+    """Phase 2: the persistent intra kernel against intra_pass_plain on
+    every case of INTRA_CASES, and its batched form against
+    intra_pass_batched_plain on 4 stacked 64x64 frames at bit depths 8,
+    10 and 12 (streams with fewer chunks run padding); each pass one host
+    call and one launch.  Exits on a difference; returns the largest
+    error (0)."""
+    for bd, ha, wa, ich, codes, n_max in INTRA_CASES:
         F, R, rec, cbs = KC.intra_frame(rng, ha, wa, bd, ich, codes)
+        rec, cbs = rec[:n_max], cbs[:n_max]
         Fk = frame_buf(dev, F)
         Fp = Fk.clone()
         Rt, rt = torch.from_numpy(R).to(dev), torch.from_numpy(rec).to(dev)
-        grids, calls = IN.launches, IN.host_calls
-        IN.intra_pass(Fk, Rt, rt, cbs, len(cbs), bd)
-        grids, calls = IN.launches - grids, IN.host_calls - calls
+        before = (IN.launches, IN.chunks, IN.host_calls)
+        IN.intra_pass(Fk, Rt, rt, torch.from_numpy(cbs).to(dev), len(cbs), bd)
+        launches, chunks, calls = (a - b for a, b in zip(
+            (IN.launches, IN.chunks, IN.host_calls), before))
         IN.intra_pass_plain(Fp, Rt, rt, cbs, len(cbs), bd)
         torch.cuda.synchronize()
         err = int((Fk[:-1] - Fp[:-1]).abs().max())
@@ -665,8 +682,9 @@ def intra_vs_plain(rng, dev, IN, KC) -> int:
         what = f"{ha}x{wa} bd {bd} block sizes {[4 << c for c in codes]}"
         print(f"intra kernel vs plain {what}: {len(cbs)} chunks of {ich}, "
               f"max_abs_err {err} (tolerance 0), {changed} pixels written, "
-              f"{grids} grids in {calls} host call")
-        if err or not changed or grids != len(cbs) or calls != 1:
+              f"{launches} launch ({chunks} chunks) in {calls} host call")
+        if err or not changed or (launches, chunks, calls) != (
+                1, len(cbs), 1):
             raise SystemExit(f"intra kernel disagrees at {what}")
     for bd in (8, 10, 12):
         F, R, flats, (om, oc, orc, cap) = KC.intra_streams(rng, 4, 64, 64, bd,
@@ -678,91 +696,74 @@ def intra_vs_plain(rng, dev, IN, KC) -> int:
         Fk = frame_buf(dev, F)
         Fp = Fk.clone()
         Rt = torch.from_numpy(R).to(dev)
-        grids, calls = IN.launches, IN.host_calls
+        before = (IN.launches, IN.chunks, IN.host_calls)
         IN.intra_pass_batched(Fk, Rt, *args)
-        grids, calls = IN.launches - grids, IN.host_calls - calls
+        launches, chunks, calls = (a - b for a, b in zip(
+            (IN.launches, IN.chunks, IN.host_calls), before))
         IN.intra_pass_batched_plain(Fp, Rt, *args)
         torch.cuda.synchronize()
         err = int((Fk[:-1] - Fp[:-1]).abs().max())
         print(f"intra batched kernel vs plain, 4 x 64x64 bd {bd}, chunk "
               f"counts {flats[:, om + 3].tolist()}, chunk 0 block sizes "
               f"{[4 << int(c) for c in flats[:, oc]]}: max_abs_err {err} "
-              f"(tolerance 0), {grids} grids in {calls} host call")
-        if err or grids != args[3] or calls != 1:
+              f"(tolerance 0), {launches} launch ({chunks} chunks) in "
+              f"{calls} host call")
+        if err or (launches, chunks, calls) != (1, args[3], 1):
             raise SystemExit(f"intra batched kernel disagrees at bd {bd}")
     return 0
 
 
-def residual_vs_plain(rng, dev, RS, KC, pack) -> int:
-    """Phase 2: the residual kernel against its plain twin on every bucket,
-    the WHT and (8 bits) the coo buckets, at bit depths 8, 10 and 12,
-    moderate and extreme inputs, one stream and three, on a random
-    residual frame (untouched pixels count).  Exits on a difference;
-    returns the largest error (0)."""
-    ha = wa = 256
-
-    def held(what, streams, kern, plain, *args):
-        R0 = torch.from_numpy(rng.integers(
-            -999, 1000, 3 * streams * ha * wa + 1).astype(np.int32)).to(dev)
-        Rk, Rp = R0.clone(), R0.clone()
-        launches = RS.launches
-        kern(Rk, *args)
-        plain(Rp, *args)
-        torch.cuda.synchronize()
-        err = int((Rk[:-1] - Rp[:-1]).abs().max())
-        if err or not (Rp != R0).any() or RS.launches != launches + 1:
-            raise SystemExit(f"residual kernel disagrees: {what}, max_abs_err "
-                             f"{err}")
-
-    def dev_arrays(*xs):
-        return [None if x is None else torch.from_numpy(x).to(dev)
-                for x in xs]
-
-    cases = [(tx, nc, False) for _, tx, nc in pack.COEFF_BUCKETS]
-    cases.append((0, 16, True))
+def residual_vs_plain(rng, dev, RS, KC) -> int:
+    """Phase 2: the one-launch residual kernel against the per-bucket twins
+    on whole bucket sets (kernel_cases.residual_frame_case: every bucket,
+    the WHT and at 8 bits the two coo buckets, no two units at one
+    position) at bit depths 8, 10 and 12, moderate and extreme inputs,
+    one stream and three, on a random residual frame (untouched pixels
+    count).  Exits on a difference; returns the largest error (0)."""
+    ha = wa = 512
     for bd in (8, 10, 12):
         for streams in (1, 3):
-            n_runs = 0
             for extreme in (False, True):
-                at = f"bd {bd}, {streams} streams, extreme {extreme}"
-                for tx, ncoef, lossless in cases:
-                    n = 4 << tx
-                    nu = min(400, 9 * (ha // n) * (wa // n) // 4)
-                    held(f"tx {tx} ncoef {ncoef} lossless {lossless}, {at}",
-                         streams, RS.residual_bucket,
-                         RS.residual_bucket_plain,
-                         *dev_arrays(*KC.residual_bucket_case(
-                             rng, streams, nu, tx, ncoef, bd, ha, wa,
-                             extreme)), tx, ha, wa, bd, lossless)
-                    n_runs += 1
-                for npairs in ((pack.COO_PAIRS, pack.COO16_PAIRS)
-                               if bd == 8 else ()):
-                    held(f"coo {npairs} pairs, {at}", streams,
-                         RS.residual_coo, RS.residual_coo_plain,
-                         *dev_arrays(*KC.residual_coo_case(
-                             rng, streams, 60, npairs, ha, wa, extreme)),
-                         ha, wa)
-                    n_runs += 1
-            print(f"residual kernel vs plain bd {bd}, {streams} stream(s): "
-                  f"{n_runs} buckets (every bucket and the WHT"
-                  f"{', tx3c and tx3cs' if bd == 8 else ''}; moderate and "
-                  f"extreme inputs), max_abs_err 0 (tolerance 0), one "
-                  f"launch each")
+                cases = KC.residual_frame_case(rng, streams, bd, ha, wa, 160,
+                                               extreme)
+                src, bset = KC.pack_buckets(cases)
+                src = torch.from_numpy(src).to(dev)
+                R0 = torch.from_numpy(rng.integers(
+                    -999, 1000, 3 * streams * ha * wa + 1).astype(
+                        np.int32)).to(dev)
+                Rk, Rp = R0.clone(), R0.clone()
+                before = (RS.launches, RS.buckets)
+                RS.residual_frame(Rk, src, bset, ha, wa, bd)
+                launches, buckets = RS.launches - before[0], \
+                    RS.buckets - before[1]
+                RS.residual_frame_plain(Rp, src, bset, ha, wa, bd)
+                torch.cuda.synchronize()
+                err = int((Rk[:-1] - Rp[:-1]).abs().max())
+                what = (f"bd {bd}, {streams} stream(s), extreme {extreme}: "
+                        f"{len(bset)} buckets (units "
+                        f"{[b.n for b in bset]})")
+                print(f"residual kernel vs plain, {what}: max_abs_err {err} "
+                      f"(tolerance 0), {launches} launch for {buckets} "
+                      f"buckets")
+                if err or not (Rp != R0).any() or (launches, buckets) != (
+                        1, len(bset)):
+                    raise SystemExit(f"residual kernel disagrees: {what}")
     return 0
 
 
-def keyframe_timings(dev, card, IN, RS, fused):
+def keyframe_timings(dev, card, IN, RS, fused, _build):
     """Phase 5: the residual and the intra kernels against their twins on
     KEYFRAME's frame 0 as the frame step feeds them (CUDA events): its
-    residual buckets into a zero frame buffer, then its intra chunks on a
-    zero frame with that residual; both results held against the twins'.
-    Also the gap of one dependent empty launch (vp9_empty_launches) and
-    the intra pass's floor, n_chunks gaps.  Returns ((ms, plain_ms, bound,
-    by), (ms, plain_ms, bound, by)) for intra and residual."""
-    import ctypes
-
-    from cuda_vp9_torch.ops.cuda import _build
-    flat, layout, mi_rows, mi_cols = keyframe_flat(KEYFRAME)
+    residual buckets into a zero frame buffer (one launch), then its
+    intra chunks on a zero frame with that residual (one persistent
+    launch); both results held against the twins'.  Also the intra
+    pass's two floors: n_chunks hand-offs of the persistent chain with
+    no work (vp9_intra_chain_floor), and n_chunks dependent empty
+    launches (vp9_empty_launches, the floor of the design before it);
+    and ptxas's registers, spills and shared memory of both kernels.
+    Returns ((ms, plain_ms, bound, by), (ms, plain_ms, bound, by)) for
+    intra and residual."""
+    flat, layout, mi_rows, mi_cols, n_waves = keyframe_flat(KEYFRAME)
     ha, wa = ((mi_rows + 7) & ~7) * 8, ((mi_cols + 7) & ~7) * 8
     flat_d = torch.from_numpy(flat).to(dev)
     misc = layout.view(flat, "misc").astype(np.int64)
@@ -772,24 +773,52 @@ def keyframe_timings(dev, card, IN, RS, fused):
         shape = (n,) + tuple(shape[1:])
         return flat_d[off:off + int(np.prod(shape))].view(shape)[None]
 
+    def trips(slot):
+        return int(misc[slot])
+
     def residual(R, plain=False):
         fused.residual_stage(
-            R, seg16, lambda slot: int(misc[slot]), layout.segs, ha, wa, 8,
-            False, *((RS.residual_bucket_plain, RS.residual_coo_plain)
-                     if plain else ()))
+            R, flat_d[None], trips, layout.segs, ha, wa, 8, False,
+            *((RS.residual_frame_plain,) if plain else ()))
 
     def zero():
         return fused.frame_buffer(ha, wa, dev)
 
     Rk, Rp = zero(), zero()
-    launches = RS.launches
+    before = (RS.launches, RS.buckets)
     residual(Rk)
-    n_res = RS.launches - launches
+    n_launch, n_res = RS.launches - before[0], RS.buckets - before[1]
     residual(Rp, plain=True)
-    if not torch.equal(Rk, Rp):
-        raise SystemExit(f"{KEYFRAME} keyframe: residual kernel != plain")
+    if not torch.equal(Rk, Rp) or n_launch != 1:
+        raise SystemExit(f"{KEYFRAME} keyframe: residual kernel != plain, "
+                         f"or not one launch ({n_launch})")
     rs_ms = cuda_ms(residual, 20, zero)
     rs_plain_ms = cuda_ms(lambda R: residual(R, True), 3, zero)
+    # the host's share: the wrapper call's own time (gather, table, ctypes
+    # call), which enqueues the launch and returns
+    host = []
+    for _ in range(20):
+        R = zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        residual(R)
+        host.append((time.perf_counter() - t0) * 1e3)
+    rs_host_ms = statistics.median(host)
+    # the device's share: 50 launches of the frame's table, back to back
+    # in one event window (at most the kernel's time each, unless the
+    # enqueue is slower than the kernel)
+    table, P, _scans = RS.bucket_table(
+        Rk, flat_d[None], fused.residual_buckets(trips, layout.segs, 8,
+                                                 False), ha, wa, 8)
+    fn = RS._lib()
+
+    def launches50(R):
+        for _ in range(50):
+            _build.call(fn, dev, R.data_ptr(), table.ctypes.data, len(table),
+                        P, ha, wa, 8)
+
+    launches50(zero())
+    rs_dev_ms = cuda_ms(launches50, 5, zero) / 50
     buckets = []
     for seg, slot, chunk, tx, kind in coeff_buckets():
         n = int(misc[slot]) * chunk
@@ -801,21 +830,27 @@ def keyframe_timings(dev, card, IN, RS, fused):
     n_intra = int(misc[3])
     chunks = seg16("intra", n_intra)[0]
     cbs = layout.view(flat, "chunk_bs")
+    cbs_d = seg16("chunk_bs", n_intra)[0]
     R = Rk[:-1].view(3, ha, wa)
     Fk, Fp = zero(), zero()
-    IN.intra_pass(Fk, R, chunks, cbs, n_intra, 8)
+    before = (IN.launches, IN.chunks)
+    IN.intra_pass(Fk, R, chunks, cbs_d, n_intra, 8)
+    in_launch = IN.launches - before[0]
     in_plain_ms = cuda_ms(lambda F: IN.intra_pass_plain(F, R, chunks, cbs,
                                                         n_intra, 8), 1,
                           lambda: Fp)
-    if not torch.equal(Fk[:-1], Fp[:-1]):
-        raise SystemExit(f"{KEYFRAME} keyframe: intra kernel != plain")
-    in_ms = cuda_ms(lambda F: IN.intra_pass(F, R, chunks, cbs, n_intra, 8),
+    if not torch.equal(Fk[:-1], Fp[:-1]) or in_launch != 1 \
+            or IN.chunks - before[1] != n_intra:
+        raise SystemExit(f"{KEYFRAME} keyframe: intra kernel != plain, or "
+                         f"not one launch ({in_launch})")
+    in_ms = cuda_ms(lambda F: IN.intra_pass(F, R, chunks, cbs_d, n_intra, 8),
                     20, zero)
     in_bound, in_by = intra_bound_ms(layout.view(flat, "intra"), cbs,
                                      n_intra)
-    empty = _build.load("intra").vp9_empty_launches
-    empty.restype = ctypes.c_int
-    empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    ich = chunks.shape[1]
+    IN.chain_floor(1, ich, n_intra, dev)
+    floor_ms = cuda_ms(lambda _: IN.chain_floor(1, ich, n_intra, dev), 20)
+    empty = IN._lib("vp9_empty_launches")
 
     def chain(_):
         if empty(2000, torch.cuda.current_stream().cuda_stream):
@@ -823,15 +858,25 @@ def keyframe_timings(dev, card, IN, RS, fused):
 
     chain(None)
     gap_ms = cuda_ms(chain, 5) / 2000
-    print(f"{KEYFRAME} keyframe residual, {n_res} buckets: kernel "
-          f"{rs_ms:.4f} ms, plain {rs_plain_ms:.3f} ms, bound "
+    print(f"{KEYFRAME} keyframe residual, {n_res} buckets in {n_launch} "
+          f"launch: kernel {rs_ms:.4f} ms (the wrapper call's host time "
+          f"{rs_host_ms:.4f} ms; one of 50 back-to-back launches of its "
+          f"table {rs_dev_ms:.4f} ms), plain {rs_plain_ms:.3f} ms, bound "
           f"{rs_bound:.5f} ms ({rs_by}); equal to the plain result [{card}]")
-    print(f"{KEYFRAME} keyframe intra, {n_intra} chunks of "
-          f"{chunks.shape[1]}: kernel {in_ms:.3f} ms ({in_ms / n_intra * 1e3:.2f}"
-          f" us a chunk), plain {in_plain_ms:.1f} ms (one run), bound "
-          f"{in_bound:.5f} ms ({in_by}); one dependent empty launch "
-          f"{gap_ms * 1e3:.3f} us, floor {n_intra} x that = "
+    print(f"{KEYFRAME} keyframe intra, {n_intra} chunks of {ich} "
+          f"({n_waves} waves) in {in_launch} launch: kernel {in_ms:.3f} ms "
+          f"({in_ms / n_intra * 1e3:.2f} us a chunk), plain "
+          f"{in_plain_ms:.1f} ms (one run), bound {in_bound:.5f} ms "
+          f"({in_by}); hand-off floor (the chain with no work) "
+          f"{floor_ms:.3f} ms = {floor_ms / n_intra * 1e3:.3f} us a chunk; "
+          f"launch floor of the per-chunk design: one dependent empty "
+          f"launch {gap_ms * 1e3:.3f} us, {n_intra} x that = "
           f"{n_intra * gap_ms:.3f} ms; equal to the plain result [{card}]")
+    for k, fn in (("intra", "intra_pass_kernel"),
+                  ("residual", "residual_kernel")):
+        for name, line in ptxas_usage(_build.build_log.get(k, "")):
+            if fn in name:
+                print(f"ptxas {k}.cu {name}: {line}")
     return ((in_ms, in_plain_ms, in_bound, in_by),
             (rs_ms, rs_plain_ms, rs_bound, rs_by))
 
@@ -1097,7 +1142,7 @@ def main() -> int:
     from cuda_vp9_torch.ops.cuda import mc as MC
     from cuda_vp9_torch.ops.cuda import residual as RS
     from cuda_vp9_torch.ops.cuda import tileprobe as TP
-    from cuda_vp9_torch.runtime import fused, pack
+    from cuda_vp9_torch.runtime import fused
     from cuda_vp9_torch.tools import kernel_cases as KC
     from cuda_vp9_torch.tools import tile_probe as probe_tool
 
@@ -1222,7 +1267,7 @@ def main() -> int:
         raise SystemExit("tile-probe kernel disagrees")
 
     in_err = intra_vs_plain(rng, dev, IN, KC)
-    rs_err = residual_vs_plain(rng, dev, RS, KC, pack)
+    rs_err = residual_vs_plain(rng, dev, RS, KC)
     mc_err = mc_vs_plain(dev, MC, KC)
 
     # 3. the step at one superblock
@@ -1238,13 +1283,15 @@ def main() -> int:
     lf_by_stream = {}
     for name, n, filtered in STREAMS:
         before = [(k.launches, getattr(k, "host_calls", 0)) for k in counted]
-        mcs_before = MC.scaled_launches
+        extra = (MC.scaled_launches, IN.chunks, RS.buckets)
         md5s, recon, dt = decode(name, n)
         (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _), \
             (mc_here, mc_calls) = [
                 (k.launches - b[0], getattr(k, "host_calls", 0) - b[1])
                 for k, b in zip(counted, before)]
-        mcs_here = MC.scaled_launches - mcs_before
+        mcs_here, chunks_here, buckets_here = (
+            a - b for a, b in zip((MC.scaled_launches, IN.chunks, RS.buckets),
+                                  extra))
         lf_by_stream[name] = lf_here
         golden = golden_md5(name)[:n]
         bad = [i for i, (a, b) in enumerate(zip(md5s, golden)) if a != b]
@@ -1252,8 +1299,9 @@ def main() -> int:
               f"on device {recon.frames_on_device}, on host "
               f"{recon.frames_on_host}, wide {recon.frames_wide}, "
               f"lf_frame launches {lf_here}, lf_chroma_422 launches "
-              f"{l4_here}, intra grids {in_here} in {calls_here} host calls, "
-              f"residual launches {rs_here}, mc grids {mc_here} ({mcs_here} "
+              f"{l4_here}, intra launches {in_here} ({chunks_here} chunks) in "
+              f"{calls_here} host calls, residual launches {rs_here} "
+              f"({buckets_here} buckets), mc grids {mc_here} ({mcs_here} "
               f"scaled) in {mc_calls} host calls, cold {dt:.2f} s")
         if len(md5s) != n or bad or recon.frames_on_device != n \
                 or recon.frames_on_host:
@@ -1262,11 +1310,12 @@ def main() -> int:
             raise SystemExit(f"{name}: the loop-filter kernel never ran")
         if name in LF422_STREAMS and (not l4_here or L4.plain_calls):
             raise SystemExit(f"{name}: the 4:2:2 chroma kernel never ran")
-        if not in_here or not rs_here or not 0 < calls_here <= n \
+        if not 0 < in_here == calls_here <= n or not 0 < rs_here <= n \
+                or buckets_here < rs_here or chunks_here < in_here \
                 or IN.plain_calls or RS.plain_calls:
             raise SystemExit(f"{name}: the intra or residual kernel never "
-                             "ran, ran a plain twin, or took more than one "
-                             "host call a frame")
+                             "ran, ran a plain twin, or made more than one "
+                             "launch (intra: host call) a frame")
         if not mc_here or not 0 < mc_calls <= n or MC.plain_calls \
                 or (name.startswith("cp01") and not mcs_here):
             raise SystemExit(f"{name}: the MC kernel (or on cp01 its scaled "
@@ -1280,9 +1329,10 @@ def main() -> int:
                                  MC.scaled_launches)
     print(f"decode path: loop-filter kernel launches {lf_launches}, plain "
           f"calls {lf_plain}; 4:2:2 chroma kernel launches {l4_launches}, "
-          f"plain calls {l4_plain}; intra kernel grids {in_launches} in "
-          f"{in_calls} host calls, plain calls {IN.plain_calls}; residual "
-          f"kernel launches {rs_launches}, plain calls {RS.plain_calls}; "
+          f"plain calls {l4_plain}; intra kernel launches {in_launches} "
+          f"({IN.chunks} chunks) in {in_calls} host calls, plain calls "
+          f"{IN.plain_calls}; residual kernel launches {rs_launches} "
+          f"({RS.buckets} buckets), plain calls {RS.plain_calls}; "
           f"mc kernel grids {mc_launches} unscaled and {mcs_launches} scaled "
           f"in {MC.host_calls} host calls, plain calls {MC.plain_calls}; "
           f"tile-probe launches {TP.launches}")
@@ -1329,7 +1379,7 @@ def main() -> int:
     if any(k.plain_calls for k in counted) or not MC.launches:
         raise SystemExit("warm decodes: a plain twin ran, or MC did not")
     mc_rows = mc_timings(card, MC)
-    in_row, rs_row = keyframe_timings(dev, card, IN, RS, fused)
+    in_row, rs_row = keyframe_timings(dev, card, IN, RS, fused, _build)
     lf_rows = {}
     for bd in (8, 10):
         F, lfm, thr = rand_lf_inputs(rng, *LF_SHAPES[-1], bd)

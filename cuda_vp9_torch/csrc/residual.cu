@@ -1,9 +1,12 @@
-// VP9 residual transforms (K2), hand-written for Hopper: `vp9_residual`.
+// VP9 residual transforms (K2), hand-written for Hopper:
+// `vp9_residual_frame`.
 //
 // Replaces the XLA stage of cuda_vp9_tpu/runtime/fused.py
 // `_residual_pass` (:44) with the bucket loops that feed it (:533-602),
 // in the single-frame step and in the batched step (its vmap written out
-// as a stream axis).  One launch per coefficient bucket with trips; each
+// as a stream axis).  One launch per frame (or batched round) runs every
+// coefficient bucket with trips: the host passes a table of the buckets,
+// and each block finds its bucket in the table's block ranges.  Each
 // transform unit
 //   * reads its coefficients: int16 at bd 8, (hi << 15) + lo above, both
 //     words sign-extended;
@@ -17,6 +20,7 @@
 //   * writes the n x n residual into R at (plane, y, x) = (cpos[0],
 //     cpos[1] - 1, cpos[2]); cpos[1] == 0 is a padded record and writes
 //     nothing.
+// Buckets write disjoint units of R, so their blocks need no order.
 //
 // Arithmetic.  The kernel computes what the port's twin computes
 // (cuda_vp9_torch/ops/transforms.py over the 1-D butterflies of
@@ -28,18 +32,34 @@
 // multiply is done in uint32_t (type I below), so signed overflow, which
 // the reference's int32 products reach at bd 12, is defined here and the
 // compiler cannot assume it away.  The butterflies below are the
-// reference's, call site for call site (D.w, D.n, D.rs).
+// reference's, call site for call site (D.w, D.n, D.rs).  Tensor cores
+// do not apply: every butterfly stage rounds and wraps its sums, which a
+// matrix product would carry unrounded.
 //
 // Layout.  128 threads a block, n threads a unit (128 / n units a
-// block); a unit's n x n block lives in shared memory as int32.  A thread
-// expands its share of the coefficients, then runs the 1-D transform of
-// row t in registers and writes it back, then that of column t, and
-// writes column t of the residual.
+// block); a unit's n x n block lives in shared memory as int32 with a
+// row stride of n + 1 words.  A thread expands its share of the
+// coefficients, then runs the 1-D transform of row t in registers
+// (reading b[t (n + 1) + q]) and writes it back, then that of column t
+// (b[q (n + 1) + t]), and writes column t of the residual.  The padding
+// is the choice over a swizzle: with stride n + 1 the 32 lanes of a warp
+// hit 32 distinct banks in both passes at every n (the units of a warp
+// sit n (n + 1) words apart, which shifts them onto the banks the others
+// leave free), with one index formula; a row stride of n made the row
+// pass a 16-way (n 16) or 32-way (n 32) conflict on every load.
 //
 // What bounds it.  A unit reads at most 2 n^2 int16 words and writes n^2
 // int32 pixels; the butterflies cost about 2 n log2 n operations a pixel.
-// Per bucket the work is a few MB at most, so at these sizes a launch
-// costs about what its work does.
+// A 1080p keyframe's buckets are a few MB, microseconds at the memory
+// rate, so the design makes the frame one host call and one launch (the
+// host's table is a kernel parameter); what remains is that call's host
+// work and the launch.  One kernel holds every transform size; ptxas
+// gives it 48 registers, no spills and 16,896 bytes of shared memory
+// (the tx 3 branch's 4 units of 32 x 33 words).  Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at its 700 W power limit:
+// hd01's 1080p keyframe (10 buckets) 0.144 ms for the wrapper's call, of
+// which 0.114 ms is its host work, and 0.025 ms a launch of its table
+// back to back.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -627,42 +647,69 @@ __device__ __forceinline__ void pass1d(const I* in, I* out, bool adst,
   }
 }
 
-// kind: 0 a coefficient row [ncoef] (raster order when ncoef == n^2,
-// else the first ncoef in scan order); 1 the same, 4x4 WHT (lossless);
-// 2 (raster index, value) pairs [ncoef / 2], 32x32.  coef, coefh and pos
-// point at stream 0's [n_units, ncoef], [n_units, ncoef] (null at bd 8)
-// and [n_units, 4] int16; stream k's lie k * coef_stride (coef and
-// coefh) and k * pos_stride elements further, and write planes
-// 3k + cpos[0].  scan: [4, ncoef] int16 raster
-// positions (prefix buckets only).  R: [P, ha, wa] int32.
+// One bucket of the table: kind 0 a coefficient row [ncoef] per unit
+// (raster order when ncoef == n^2, else the first ncoef in scan order); 1
+// the same, 4x4 WHT (lossless); 2 (raster index, value) pairs [ncoef /
+// 2], 32x32.  coef, coefh and pos point at stream 0's [n_units, ncoef],
+// [n_units, ncoef] (null at bd 8) and [n_units, 4] int16; stream k's lie
+// k * coef_stride (coef and coefh) and k * pos_stride elements further,
+// and write planes 3k + cpos[0].  scan: [4, ncoef] int16 raster positions
+// (prefix buckets only).  Its blocks are [first_block, first_block +
+// ceil(n_units n_streams / (128 / n))).
+struct Bucket {
+  const int16_t* coef;
+  const int16_t* coefh;
+  const int16_t* pos;
+  const int16_t* scan;
+  long long coef_stride, pos_stride;
+  int n_units, n_streams, tx, kind, ncoef, first_block;
+};
+
+constexpr int kMaxBuckets = 16;
+
+// The frame's buckets, a kernel parameter (__grid_constant__: read in
+// place from the parameter bank, never copied to local memory).  R is
+// [P, ha, wa] int32.
+struct Table {
+  Bucket b[kMaxBuckets];
+  int n, P, ha, wa, bd;
+};
+
+// Shared memory: a block's units, each n rows of n + 1 words; the most
+// is 4 units of 32 x 33.
+constexpr int kSmemWords = 4 * 32 * 33;
+
+// The units of bucket `bk` that fall to this block, n threads a unit:
+// expand into shared memory, row pass, column pass, write.
 template <int TX>
-__global__ void __launch_bounds__(kThreads)
-residual_kernel(int32_t* __restrict__ R, const int16_t* __restrict__ coef,
-                const int16_t* __restrict__ coefh,
-                const int16_t* __restrict__ pos, long long coef_stride,
-                long long pos_stride, int n_units, int n_streams, int ncoef,
-                const int16_t* __restrict__ scan, int kind, int P, int ha,
-                int wa, int bd) {
+__device__ __forceinline__ void bucket_units(int32_t* __restrict__ R,
+                                             const Bucket& bk,
+                                             const Table& tab,
+                                             int32_t* smem) {
   constexpr int n = 4 << TX;
   constexpr int n2 = n * n;
+  constexpr int S = n + 1;  // row stride: rows land on distinct banks
   constexpr int per_block = kThreads / n;
   constexpr int shift = TX == 0 ? 4 : (TX == 1 ? 5 : 6);
-  __shared__ int32_t blk[per_block][n2];
   const int slot = threadIdx.x / n;
   const int t = threadIdx.x % n;
-  const long long j = static_cast<long long>(blockIdx.x) * per_block + slot;
-  const bool live = j < static_cast<long long>(n_units) * n_streams;
-  int32_t* b = blk[slot];
-  const long long k = live ? j / n_units : 0;
-  const long long unit = live ? j % n_units : 0;
-  const int16_t* c = coef + k * coef_stride + unit * ncoef;
-  const int16_t* ch = coefh ? coefh + k * coef_stride + unit * ncoef
-                            : nullptr;
-  const int16_t* ps = pos + k * pos_stride + unit * 4;
+  const long long j =
+      static_cast<long long>(blockIdx.x - bk.first_block) * per_block + slot;
+  const bool live = j < static_cast<long long>(bk.n_units) * bk.n_streams;
+  int32_t* b = smem + slot * n * S;
+  const long long k = live ? j / bk.n_units : 0;
+  const long long unit = live ? j % bk.n_units : 0;
+  const int ncoef = bk.ncoef;
+  const int kind = bk.kind;
+  const int16_t* c = bk.coef + k * bk.coef_stride + unit * ncoef;
+  const int16_t* ch =
+      bk.coefh ? bk.coefh + k * bk.coef_stride + unit * ncoef : nullptr;
+  const int16_t* ps = bk.pos + k * bk.pos_stride + unit * 4;
   const int tt = live ? ps[3] & 3 : 0;
 
-  // expand: zero the block, then place the coefficients
-  for (int q = t; q < n2; q += n) b[q] = 0;
+  // expand: zero the block, then place the coefficients (raster index q
+  // at row q / n, column q % n)
+  for (int q = t; q < n * S; q += n) b[q] = 0;
   __syncthreads();
   if (live) {
     if (kind == 2) {
@@ -670,7 +717,7 @@ residual_kernel(int32_t* __restrict__ R, const int16_t* __restrict__ coef,
         int idx = c[2 * q];
         const int val = c[2 * q + 1];
         idx = (idx == 0 && val == 0) ? n2 : min(max(idx, 0), n2);
-        if (idx < n2) b[idx] = val;
+        if (idx < n2) b[(idx / n) * S + idx % n] = val;
       }
     } else {
       for (int q = t; q < ncoef; q += n) {
@@ -678,85 +725,127 @@ residual_kernel(int32_t* __restrict__ R, const int16_t* __restrict__ coef,
         const int v =
             ch ? static_cast<int>(static_cast<uint32_t>(ch[q]) << 15) + c[q]
                : c[q];
-        b[ncoef < n2 ? scan[tt * ncoef + q] : q] = v;
+        const int idx = ncoef < n2 ? bk.scan[tt * ncoef + q] : q;
+        b[(idx / n) * S + idx % n] = v;
       }
     }
   }
   __syncthreads();
 
-  const int sh = bd == 8 ? 16 : 24 - bd;
+  const int sh = tab.bd == 8 ? 16 : 24 - tab.bd;
   const Dom D{sh};
   I in[n], out[n];
   // row pass: row t; ADST when tx_type is 2 or 3.  The WHT's inputs shift
   // right by 2 first.
 #pragma unroll
   for (int q = 0; q < n; ++q)
-    in[q] = I(kind == 1 ? b[t * n + q] >> 2 : b[t * n + q]);
+    in[q] = I(kind == 1 ? b[t * S + q] >> 2 : b[t * S + q]);
   pass1d<TX>(in, out, (tt & 2) != 0, kind, D);
 #pragma unroll
-  for (int q = 0; q < n; ++q) b[t * n + q] = out[q].s();
+  for (int q = 0; q < n; ++q) b[t * S + q] = out[q].s();
   __syncthreads();
   // column pass: column t; ADST when tx_type is 1 or 3
 #pragma unroll
-  for (int q = 0; q < n; ++q) in[q] = I(b[q * n + t]);
+  for (int q = 0; q < n; ++q) in[q] = I(b[q * S + t]);
   pass1d<TX>(in, out, (tt & 1) != 0, kind, D);
   if (!live || ps[1] == 0) return;
   const int plane = ps[0] + 3 * static_cast<int>(k);
   const int y0 = ps[1] - 1;
   const int x = ps[2] + t;
-  if (plane < 0 || plane >= P || x < 0 || x >= wa) return;
-  int32_t* Rp = R + static_cast<long long>(plane) * ha * wa;
+  if (plane < 0 || plane >= tab.P || x < 0 || x >= tab.wa) return;
+  int32_t* Rp = R + static_cast<long long>(plane) * tab.ha * tab.wa;
 #pragma unroll
   for (int q = 0; q < n; ++q) {
     const int y = y0 + q;
-    if (y < 0 || y >= ha) continue;
+    if (y < 0 || y >= tab.ha) continue;
     // the WHT has no final round shift
-    Rp[static_cast<long long>(y) * wa + x] =
+    Rp[static_cast<long long>(y) * tab.wa + x] =
         kind == 1 ? out[q].s()
                   : (out[q].s() + (1 << (shift - 1))) >> shift;
   }
 }
 
-template <int TX>
-cudaError_t launch(int32_t* R, const int16_t* coef, const int16_t* coefh,
-                   const int16_t* pos, long long coef_stride,
-                   long long pos_stride, int n_units, int n_streams, int ncoef, const int16_t* scan, int kind,
-                   int P, int ha, int wa, int bd, cudaStream_t st) {
-  constexpr int per_block = kThreads / (4 << TX);
-  const long long units = static_cast<long long>(n_units) * n_streams;
-  const int blocks = static_cast<int>((units + per_block - 1) / per_block);
-  residual_kernel<TX><<<blocks, kThreads, 0, st>>>(
-      R, coef, coefh, pos, coef_stride, pos_stride, n_units, n_streams,
-      ncoef, scan, kind, P, ha, wa, bd);
-  return cudaGetLastError();
+// One launch for the frame: block blockIdx.x runs the bucket whose block
+// range holds it, at that bucket's transform size.
+__global__ void __launch_bounds__(kThreads)
+residual_kernel(int32_t* __restrict__ R, const __grid_constant__ Table tab) {
+  __shared__ int32_t smem[kSmemWords];
+  int i = 0;
+  while (i + 1 < tab.n && static_cast<int>(blockIdx.x) >=
+                              tab.b[i + 1].first_block)
+    ++i;
+  const Bucket& bk = tab.b[i];
+  switch (bk.tx) {
+    case 0:
+      bucket_units<0>(R, bk, tab, smem);
+      break;
+    case 1:
+      bucket_units<1>(R, bk, tab, smem);
+      break;
+    case 2:
+      bucket_units<2>(R, bk, tab, smem);
+      break;
+    default:
+      bucket_units<3>(R, bk, tab, smem);
+  }
 }
 
 }  // namespace
 
-// Inverse-transforms one bucket of n_units records of each of n_streams
-// streams into R [P, ha, wa] int32 on `stream`: one launch (see
-// residual_kernel for the arguments; tx 0..3).  *launched counts it.
-// Returns the CUDA error, or 0.
-extern "C" int vp9_residual(void* R, const void* coef, const void* coefh,
-                            const void* pos, long long coef_stride,
-                            long long pos_stride, int n_units, int n_streams,
-                            int tx, int ncoef, const void* scan, int kind,
-                            int P, int ha, int wa, int bd, void* stream,
-                            int* launched) {
+// Words of one bucket descriptor of vp9_residual_frame.
+constexpr int kDescWords = 12;
+
+// Inverse-transforms the buckets of a frame (or of a batched round) into
+// R [P, ha, wa] int32 on `stream`, as one launch.  desc: n_buckets x 12
+// int64 host words per bucket, (coef, coefh, pos, scan, coef_stride,
+// pos_stride, n_units, n_streams, tx, kind, ncoef, first_block), the
+// fields of Bucket; the block ranges must follow each other from 0, each
+// ceil(n_units n_streams / (128 / n)) blocks.  *launched counts the
+// launch (0 with no block).  Returns the CUDA error, or 0
+// (cudaErrorInvalidValue for a table the kernel does not take).
+extern "C" int vp9_residual_frame(void* R, const long long* desc,
+                                  int n_buckets, int P, int ha, int wa,
+                                  int bd, void* stream, int* launched) {
   *launched = 0;
-  if (n_units <= 0 || n_streams <= 0) return 0;
-  if (tx < 0 || tx > 3) return static_cast<int>(cudaErrorInvalidValue);
-  using Launch = cudaError_t (*)(int32_t*, const int16_t*, const int16_t*,
-                                 const int16_t*, long long, long long, int,
-                                 int, int, const int16_t*, int, int, int, int,
-                                 int, cudaStream_t);
-  const Launch by_tx[4] = {launch<0>, launch<1>, launch<2>, launch<3>};
-  const cudaError_t err = by_tx[tx](
-      static_cast<int32_t*>(R), static_cast<const int16_t*>(coef),
-      static_cast<const int16_t*>(coefh), static_cast<const int16_t*>(pos),
-      coef_stride, pos_stride, n_units, n_streams, ncoef,
-      static_cast<const int16_t*>(scan), kind, P, ha, wa, bd,
-      static_cast<cudaStream_t>(stream));
+  if (n_buckets < 0 || n_buckets > kMaxBuckets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.n = n_buckets;
+  tab.P = P;
+  tab.ha = ha;
+  tab.wa = wa;
+  tab.bd = bd;
+  long long blocks = 0;
+  for (int i = 0; i < n_buckets; ++i) {
+    const long long* d = desc + i * kDescWords;
+    Bucket& b = tab.b[i];
+    b.coef = reinterpret_cast<const int16_t*>(d[0]);
+    b.coefh = reinterpret_cast<const int16_t*>(d[1]);
+    b.pos = reinterpret_cast<const int16_t*>(d[2]);
+    b.scan = reinterpret_cast<const int16_t*>(d[3]);
+    b.coef_stride = d[4];
+    b.pos_stride = d[5];
+    b.n_units = static_cast<int>(d[6]);
+    b.n_streams = static_cast<int>(d[7]);
+    b.tx = static_cast<int>(d[8]);
+    b.kind = static_cast<int>(d[9]);
+    b.ncoef = static_cast<int>(d[10]);
+    b.first_block = static_cast<int>(d[11]);
+    const int n = 4 << (b.tx & 3);
+    if (b.tx < 0 || b.tx > 3 || b.kind < 0 || b.kind > 2 ||
+        (b.kind == 2 && b.tx != 3) || (b.kind == 1 && b.tx != 0) ||
+        b.n_units <= 0 || b.n_streams <= 0 || b.first_block != blocks ||
+        (b.kind != 2 && b.ncoef < n * n && !b.scan))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int per_block = kThreads / n;
+    blocks += (static_cast<long long>(b.n_units) * b.n_streams + per_block -
+               1) / per_block;
+  }
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (!blocks) return 0;
+  residual_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(R), tab);
   ++*launched;
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -6,26 +6,29 @@ frame and a trash element) with the residual R [3, ha, wa]: the
 counterpart of `cuda_vp9_tpu/runtime/fused.py` `_intra_pass` (:452),
 `_intra_chunk` (:433) and `ops/device/stages.py` `intra_wave` (:161).
 `intra_pass_batched` is the batched step's form (that vmap written out
-as a stream axis): chunk i of each of A streams is one call over the
-frames' stacked planes [3A, ha, wa], each record with its own stream's
-block size, and a stream with fewer chunks runs padding.
+as a stream axis): chunk i of each of A streams is one step of the chain
+over the frames' stacked planes [3A, ha, wa], each record with its own
+stream's block size, and a stream with fewer chunks runs padding.
 
 The chunks are the int16 wire records, 4 words each (`intra_chunk`).  On a
 CUDA tensor both forms make one call into `vp9_intra_pass` of
-`csrc/intra.cu`, which enqueues one grid per chunk on the current
-stream, or raise; on a CPU tensor they run `intra_pass_plain` /
-`intra_pass_batched_plain`, the chunk loop over `stages.intra_wave`.
+`csrc/intra.cu`, which zeroes a workspace and makes one persistent
+launch on the current stream: its blocks claim the chunks' items in
+order and hand each chunk to the next through a done counter on the
+device, with every block size read from chunk_bs on the device.  On a
+CPU tensor they run `intra_pass_plain` / `intra_pass_batched_plain`, the
+chunk loop over `stages.intra_wave`.
 
-`launches` counts the grids the kernel ran (one per chunk), `host_calls`
-the calls into the C entry point (one per frame, or per round of the
-batched step) and `plain_calls` the calls of a plain twin.
+`launches` counts the kernel launches (one per host call), `chunks` the
+chunks those launches ran (the grids of the design before this one),
+`host_calls` the calls into the C entry point (one per frame, or per
+round of the batched step) and `plain_calls` the calls of a plain twin.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import _build
@@ -34,13 +37,19 @@ from ..device import stages
 I32 = torch.int32
 
 launches = 0
+chunks = 0
 host_calls = 0
 plain_calls = 0
 
+# int32 words of one workspace line (128 bytes): the ticket and each
+# chunk's done counter have a line each (csrc/intra.cu kLine)
+WS_LINE = 32
+
 
 def reset_counts():
-    global launches, host_calls, plain_calls
+    global launches, chunks, host_calls, plain_calls
     launches = 0
+    chunks = 0
     host_calls = 0
     plain_calls = 0
 
@@ -134,48 +143,68 @@ def _check(Fbuf, R, chunks, lead: int):
         raise ValueError("Fbuf, R and chunks must be on one device")
 
 
-def _lib():
-    """The bound C entry point; builds csrc/intra.cu at first use."""
-    fn = _build.load("intra").vp9_intra_pass
+def _lib(name="vp9_intra_pass"):
+    """A bound C entry point of csrc/intra.cu, built at first use."""
+    fn = getattr(_build.load("intra"), name)
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.restype = i
-        fn.argtypes = [vp, vp, vp, ll, vp, ll, vp, ll, i, i, i, vp, i, i, i,
-                       i, vp, ctypes.POINTER(i)]
+        fn.argtypes = {
+            "vp9_intra_pass": [vp, vp, vp, ll, vp, ll, vp, ll, i, i, i, i, i,
+                               i, i, vp, vp, ctypes.POINTER(i)],
+            "vp9_intra_chain_floor": [i, i, i, vp, vp, ctypes.POINTER(i)],
+            "vp9_empty_launches": [i, vp]}[name]
     return fn
 
 
+def workspace(n_chunks: int, device):
+    """The kernel's int32 scratch for a chain of n_chunks chunks: the
+    ticket and one done counter per chunk, a line each.  The C entry
+    point zeroes it on the stream before its launch; the caching
+    allocator keeps it with the stream."""
+    return torch.empty(WS_LINE * (n_chunks + 1), dtype=torch.int32,
+                       device=device)
+
+
 def _launch(Fbuf, R, rec, rec_stride, cbs, cbs_stride, cnt, cnt_stride,
-            n_streams, ich, n_chunks, host_bs, bd):
-    global launches, host_calls
+            n_streams, ich, n_chunks, bd):
+    """One call into vp9_intra_pass (pointers and element strides as the
+    C side takes them; cnt None: every stream has n_chunks chunks)."""
+    global launches, chunks, host_calls
     P, ha, wa = R.shape
+    ws = workspace(n_chunks, Fbuf.device)
     host_calls += 1
     launches += _build.call(
         _lib(), Fbuf.device, Fbuf.data_ptr(), R.data_ptr(), rec, rec_stride,
-        cbs, cbs_stride, cnt, cnt_stride, n_streams, ich, n_chunks,
-        None if host_bs is None else host_bs.ctypes.data, P, ha, wa, bd)
+        cbs, cbs_stride, cnt, cnt_stride, n_streams, ich, n_chunks, P, ha,
+        wa, bd, ws.data_ptr())
+    chunks += n_chunks
 
 
 def intra_pass(Fbuf, R, chunks, chunk_bs, n_chunks: int, bd: int):
     """Run intra chunks 0 .. n_chunks - 1 of one frame in order, in place
     on Fbuf.  chunks: int16 [>= n_chunks, ich, 4] wire records on Fbuf's
-    device; chunk_bs: the HOST chunk_bs (numpy, >= n_chunks block size
-    codes 0..3).  CUDA tensors go to the kernel (one host call), CPU
-    tensors to intra_pass_plain."""
+    device; chunk_bs: int16 [>= n_chunks] block size codes 0..3, on
+    Fbuf's device (the twin also takes host ints).  CUDA tensors go to
+    the kernel (one launch), CPU tensors to intra_pass_plain."""
     if Fbuf.device.type == "cpu":
         return intra_pass_plain(Fbuf, R, chunks, chunk_bs, n_chunks, bd)
     if Fbuf.device.type != "cuda":
         raise ValueError(f"intra_pass: unsupported device {Fbuf.device}")
     _check(Fbuf, R, chunks, 1)
+    if getattr(chunk_bs, "device", None) != Fbuf.device \
+            or chunk_bs.dtype != torch.int16 or chunk_bs.dim() != 1 \
+            or chunk_bs.stride(0) != 1 or R.shape[0] != 3:
+        raise ValueError("intra_pass: chunk_bs must be int16 [n] on Fbuf's "
+                         "device, R [3, ha, wa]")
     if n_chunks <= 0:
         return
-    if chunks.shape[0] < n_chunks or len(chunk_bs) < n_chunks:
+    if chunks.shape[0] < n_chunks or chunk_bs.shape[0] < n_chunks:
         raise ValueError("intra_pass: fewer chunks than n_chunks")
-    host_bs = np.ascontiguousarray(np.asarray(chunk_bs)[:n_chunks], np.int16)
-    _launch(Fbuf, R, chunks.data_ptr(), 0, None, 0, None, 0, 1,
-            chunks.shape[1], n_chunks, host_bs, bd)
+    _launch(Fbuf, R, chunks.data_ptr(), 0, chunk_bs.data_ptr(), 0, None, 0,
+            1, chunks.shape[1], n_chunks, bd)
 
 
 def intra_pass_batched(Fbuf, R, chunks, chunk_bs, counts, n_chunks: int,
@@ -187,7 +216,7 @@ def intra_pass_batched(Fbuf, R, chunks, chunk_bs, counts, n_chunks: int,
     n_chunks] and counts: int16 [A] (each stream's chunk count, misc[3]),
     all on Fbuf's device, any stride between streams.  n_chunks: a host
     int, the most chunks of any stream.  CUDA tensors go to the kernel
-    (one host call), CPU tensors to intra_pass_batched_plain."""
+    (one launch), CPU tensors to intra_pass_batched_plain."""
     if Fbuf.device.type == "cpu":
         return intra_pass_batched_plain(Fbuf, R, chunks, chunk_bs, counts,
                                         n_chunks, bd)
@@ -209,4 +238,13 @@ def intra_pass_batched(Fbuf, R, chunks, chunk_bs, counts, n_chunks: int,
         raise ValueError("intra_pass_batched: fewer chunks than n_chunks")
     _launch(Fbuf, R, chunks.data_ptr(), chunks.stride(0), chunk_bs.data_ptr(),
             chunk_bs.stride(0), counts.data_ptr(), counts.stride(0), A,
-            chunks.shape[2], n_chunks, None, bd)
+            chunks.shape[2], n_chunks, bd)
+
+
+def chain_floor(n_streams: int, ich: int, n_chunks: int, device) -> int:
+    """Run vp9_intra_chain_floor on `device`'s current stream: the chain
+    of a pass of n_chunks chunks of n_streams x ich units with no work
+    per item.  Returns its launches (1); counts nothing."""
+    ws = workspace(n_chunks, device)
+    return _build.call(_lib("vp9_intra_chain_floor"), device, n_streams,
+                       ich, n_chunks, ws.data_ptr())

@@ -1,28 +1,34 @@
-"""Residual transforms (K2): the CUDA kernel and its plain torch twin.
+"""Residual transforms (K2): the CUDA kernel and its plain torch twins.
 
-`residual_bucket` inverse-transforms one coefficient bucket into the
-residual frame buffer (`runtime/fused.frame_buffer`: int32 [P*ha*wa + 1]):
-the counterpart of `cuda_vp9_tpu/runtime/fused.py` `_residual_pass`
-(:44) with the step's expansion of a scan-prefix bucket (:540-580).
-`residual_coo` does the same for the 32x32 coo buckets tx3c and tx3cs,
-whose units ship (raster index, value) pairs (:582-602).  Both take A
-streams' records at once, the batched step's stream axis: stream k's
-units land in planes 3k + cpos[0]; the single-frame step passes A = 1.
+`residual_frame` inverse-transforms a frame's coefficient buckets into
+the residual frame buffer (`runtime/fused.frame_buffer`: int32 [P*ha*wa
++ 1]): the counterpart of `cuda_vp9_tpu/runtime/fused.py`
+`_residual_pass` (:44) with the step's expansion of a scan-prefix bucket
+(:540-580) and of the 32x32 coo buckets tx3c and tx3cs, whose units ship
+(raster index, value) pairs (:582-602).  Each `Bucket` takes A streams'
+records at once, the batched step's stream axis: stream k's units land
+in planes 3k + cpos[0]; the single-frame step passes A = 1.
 
-Records are the wire's int16 segments: coefficients [A, n, ncoef] (above
-8 bits a second [A, n, ncoef] of high words, v = (hi << 15) + lo), cpos
-[A, n, 4] = (plane, y + 1, x, tx_type), y + 1 == 0 marking a padded
-record.  On a CUDA tensor each call is one launch of `vp9_residual` of
-`csrc/residual.cu`, or raises; on a CPU tensor it runs the plain twin,
-`ops/transforms.py` over torch expansions.
+Records are the wire's int16 segments, which a `Bucket` names by their
+offsets in each stream's flat (src [A, L]): coefficients [n, ncoef]
+(above 8 bits a second [n, ncoef] of high words, v = (hi << 15) + lo),
+cpos [n, 4] = (plane, y + 1, x, tx_type), y + 1 == 0 marking a padded
+record.  On a CUDA tensor `residual_frame` is one call into
+`vp9_residual_frame` of `csrc/residual.cu` with a table of the buckets
+built from those offsets in host ints, which makes one launch for all of
+them, or raises; on a CPU tensor it runs `residual_frame_plain`, the
+plain twins `residual_bucket_plain` and `residual_coo_plain` bucket by
+bucket over views of src (`ops/transforms.py` over torch expansions).
 
-`launches` counts the kernel launches and `plain_calls` the calls of a
-plain twin.
+`launches` counts the kernel launches (one per frame or round),
+`buckets` the buckets those launches ran and `plain_calls` the calls of
+a plain twin (one per bucket).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,14 +41,39 @@ from ..device.blocks import put_blocks
 I32 = torch.int32
 
 launches = 0
+buckets = 0
 plain_calls = 0
 
 _scans = {}
 
+# words of one bucket descriptor of vp9_residual_frame (csrc/residual.cu
+# kDescWords; a call takes at most kMaxBuckets = 16 buckets, a frame has
+# at most 14)
+DESC_WORDS = 12
+
+
+class Bucket(NamedTuple):
+    """One coefficient bucket of A streams, as segments of each stream's
+    row of an int16 source [A, L] (the wire's flats): element offsets of
+    coef [n, ncoef] (the first ncoef coefficients in scan order, raster
+    order when ncoef == (4 << tx)^2; kind 2: interleaved (raster index,
+    value) pairs, (0, 0) a padding pair), of coefh (the high words above
+    8 bits, of coef's shape) or None, and of pos (cpos [n, 4]); n units a
+    stream; tx 0..3; kind 0 (DCT/ADST), 1 (the lossless WHT, tx 0) or 2
+    (coo pairs, tx 3, 8 bits)."""
+    coef: int
+    coefh: int | None
+    pos: int
+    n: int
+    ncoef: int
+    tx: int
+    kind: int
+
 
 def reset_counts():
-    global launches, plain_calls
+    global launches, buckets, plain_calls
     launches = 0
+    buckets = 0
     plain_calls = 0
 
 
@@ -133,92 +164,107 @@ def residual_coo_plain(Rbuf, pairs, pos, ha: int, wa: int):
                    _stream_pos(pos), 3, ha, wa)
 
 
+def bucket_views(src, b: Bucket):
+    """(coef, coefh or None, pos): bucket b's int16 views [A, n, ...] of
+    the source src [A, L]."""
+    A = src.shape[0]
+
+    def view(off, k):
+        return src[:, off:off + b.n * k].view(A, b.n, k)
+
+    return (view(b.coef, b.ncoef),
+            None if b.coefh is None else view(b.coefh, b.ncoef),
+            view(b.pos, 4))
+
+
+def residual_frame_plain(Rbuf, src, bucket_set, ha: int, wa: int,
+                         bd: int = 8):
+    """The buckets in order, each through its plain twin."""
+    for b in bucket_set:
+        coef, coefh, pos = bucket_views(src, b)
+        if b.kind == 2:
+            residual_coo_plain(Rbuf, coef, pos, ha, wa)
+        else:
+            residual_bucket_plain(Rbuf, coef, coefh, pos, b.tx, ha, wa, bd,
+                                  b.kind == 1)
+
+
 # ----------------------------------------------------------------- kernel
-
-
-def _check(Rbuf, coef, coefh, pos, ha, wa, bd):
-    """Rbuf int32 [P*ha*wa + 1] contiguous; coef (and coefh, with coef's
-    strides) int16 [A, n, ncoef], pos int16 [A, n, 4], each stream's rows
-    contiguous; coefh present exactly above 8 bits.  Returns P."""
-    if Rbuf.dtype != torch.int32 or Rbuf.dim() != 1 \
-            or not Rbuf.is_contiguous() or (Rbuf.numel() - 1) % (ha * wa):
-        raise ValueError("Rbuf must be a contiguous int32 frame buffer")
-    if (coefh is None) != (bd == 8):
-        raise ValueError("coefh is the high words above 8 bits, and only "
-                         "there")
-    arrs = [coef, pos] + ([] if coefh is None else [coefh])
-    A, n = coef.shape[:2]
-    for a in arrs:
-        if a.dtype != torch.int16 or a.dim() != 3 or a.shape[:2] != (A, n) \
-                or a.stride()[1:] != (a.shape[2], 1) \
-                or a.device != Rbuf.device:
-            raise ValueError("coefficients and cpos must be int16 [A, n, k] "
-                             "on Rbuf's device, each stream's rows "
-                             "contiguous")
-    if pos.shape[2] != 4 or (coefh is not None and (
-            coefh.shape != coef.shape or coefh.stride() != coef.stride())):
-        raise ValueError("cpos must be [A, n, 4], coefh of coef's shape and "
-                         "strides")
-    return (Rbuf.numel() - 1) // (ha * wa)
 
 
 def _lib():
     """The bound C entry point; builds csrc/residual.cu at first use."""
-    fn = _build.load("residual").vp9_residual
+    fn = _build.load("residual").vp9_residual_frame
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: without argtypes
         # ctypes passes Python ints as 32-bit C ints
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
-        ll = ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, i, vp, i, i, i, i, i,
-                       vp, ctypes.POINTER(i)]
+        fn.argtypes = [vp, vp, i, i, i, i, i, vp, ctypes.POINTER(i)]
     return fn
 
 
-def _launch(Rbuf, coef, coefh, pos, tx, scan, kind, ha, wa, bd):
-    global launches
-    P = _check(Rbuf, coef, coefh, pos, ha, wa, bd)
-    A, n, ncoef = coef.shape
-    if not n:
+def bucket_table(Rbuf, src, bucket_set, ha: int, wa: int, bd: int):
+    """(table int64 [nb, DESC_WORDS], P, scans): the descriptor of each
+    bucket with units, in order, with its first block (a block serves
+    128 / n units, so the blocks of the buckets follow each other from
+    0), and the scan tables it points at (kept alive by the caller).
+    Checks Rbuf (int32 [P*ha*wa + 1], contiguous), src (int16 [A, L],
+    each row contiguous, on Rbuf's device) and that every segment lies
+    in a row; host ints only, no tensor per bucket."""
+    if Rbuf.dtype != torch.int32 or Rbuf.dim() != 1 \
+            or not Rbuf.is_contiguous() or (Rbuf.numel() - 1) % (ha * wa):
+        raise ValueError("Rbuf must be a contiguous int32 frame buffer")
+    if src.dtype != torch.int16 or src.dim() != 2 or src.stride(1) != 1 \
+            or src.device != Rbuf.device:
+        raise ValueError("src must be int16 [A, L] on Rbuf's device, each "
+                         "row contiguous")
+    A, L = src.shape
+    base, stride = src.data_ptr(), src.stride(0)
+    rows, scans, first = [], [], 0
+    for b in bucket_set:
+        if b.kind not in (0, 1, 2) or not 0 <= b.tx <= 3 \
+                or (b.kind == 1 and b.tx != 0) \
+                or (b.kind == 2 and (b.tx != 3 or bd != 8)):
+            raise ValueError(f"no residual bucket of tx {b.tx}, kind "
+                             f"{b.kind} at bd {bd}")
+        if (b.coefh is None) != (bd == 8):
+            raise ValueError("coefh is the high words above 8 bits, and "
+                             "only there")
+        segs = [(b.coef, b.ncoef), (b.pos, 4)] + (
+            [] if b.coefh is None else [(b.coefh, b.ncoef)])
+        if any(off < 0 or off + b.n * k > L for off, k in segs) \
+                or b.n < 0 or b.ncoef <= 0:
+            raise ValueError("a bucket's segments must lie in src's rows")
+        if not b.n or not A:
+            continue
+        scan = None
+        if b.kind != 2 and b.ncoef < (4 << b.tx) ** 2:
+            scan = scan_table(b.tx, b.ncoef, Rbuf.device, torch.int16)
+            scans.append(scan)
+        rows.append([base + 2 * b.coef,
+                     0 if b.coefh is None else base + 2 * b.coefh,
+                     base + 2 * b.pos, 0 if scan is None else scan.data_ptr(),
+                     stride, stride, b.n, A, b.tx, b.kind, b.ncoef, first])
+        first += -(-b.n * A // (128 // (4 << b.tx)))
+    P = (Rbuf.numel() - 1) // (ha * wa)
+    return np.asarray(rows, np.int64).reshape(-1, DESC_WORDS), P, scans
+
+
+def residual_frame(Rbuf, src, bucket_set, ha: int, wa: int, bd: int = 8):
+    """Inverse-transform bucket_set (a list of `Bucket`: a frame's, or a
+    batched round's, segments of src int16 [A, L]) into the residual
+    frame buffer Rbuf [P*ha*wa + 1] int32, stream k's units in planes 3k
+    + cpos[0].  CUDA tensors go to the kernel (one host call and one
+    launch for every bucket), CPU tensors to residual_frame_plain."""
+    global launches, buckets
+    if Rbuf.device.type == "cpu":
+        return residual_frame_plain(Rbuf, src, bucket_set, ha, wa, bd)
+    if Rbuf.device.type != "cuda":
+        raise ValueError(f"residual_frame: unsupported device {Rbuf.device}")
+    table, P, _scans = bucket_table(Rbuf, src, bucket_set, ha, wa, bd)
+    if not len(table):
         return
-    launches += _build.call(
-        _lib(), Rbuf.device, Rbuf.data_ptr(), coef.data_ptr(),
-        None if coefh is None else coefh.data_ptr(), pos.data_ptr(),
-        coef.stride(0), pos.stride(0), n, A, tx, ncoef, None if scan is None else scan.data_ptr(),
-        kind, P, ha, wa, bd)
-
-
-def residual_bucket(Rbuf, coef, coefh, pos, tx: int, ha: int, wa: int,
-                    bd: int = 8, lossless: bool = False):
-    """Inverse-transform a coefficient bucket of tx size tx (0..3) into
-    the residual frame buffer Rbuf [P*ha*wa + 1] int32.  coef: int16
-    [A, n, ncoef], the first ncoef coefficients in scan order (raster
-    order when ncoef == (4 << tx)^2); coefh: the int16 high words above
-    8 bits, else None; pos: int16 cpos [A, n, 4]; lossless: the WHT (tx
-    0).  CUDA tensors go to the kernel (one launch), CPU tensors to
-    residual_bucket_plain."""
-    if Rbuf.device.type == "cpu":
-        return residual_bucket_plain(Rbuf, coef, coefh, pos, tx, ha, wa, bd,
-                                     lossless)
-    if Rbuf.device.type != "cuda":
-        raise ValueError(f"residual_bucket: unsupported device {Rbuf.device}")
-    if lossless and tx != 0:
-        raise ValueError("a lossless frame has bucket tx0 only")
-    ncoef = coef.shape[-1]
-    scan = (scan_table(tx, ncoef, Rbuf.device, torch.int16)
-            if ncoef < (4 << tx) ** 2 else None)
-    _launch(Rbuf, coef, coefh, pos, tx, scan, 1 if lossless else 0, ha, wa,
-            bd)
-
-
-def residual_coo(Rbuf, pairs, pos, ha: int, wa: int):
-    """Inverse-transform a 32x32 coo bucket (8-bit only) into Rbuf: pairs
-    int16 [A, n, 2P] interleaved (raster index, value), (0, 0) a padding
-    pair; pos int16 cpos [A, n, 4].  CUDA tensors go to the kernel (one
-    launch), CPU tensors to residual_coo_plain."""
-    if Rbuf.device.type == "cpu":
-        return residual_coo_plain(Rbuf, pairs, pos, ha, wa)
-    if Rbuf.device.type != "cuda":
-        raise ValueError(f"residual_coo: unsupported device {Rbuf.device}")
-    _launch(Rbuf, pairs, None, pos, 3, None, 2, ha, wa, 8)
+    launches += _build.call(_lib(), Rbuf.device, Rbuf.data_ptr(),
+                            table.ctypes.data, len(table), P, ha, wa, bd)
+    buckets += len(table)

@@ -16,19 +16,19 @@ step(pool, ring, kernels, flat) reconstructs one frame and updates
 `pool` and `ring` in place (JAX donates them; here the update is in
 place to keep one copy of the pool on the device):
 
-  residual transforms per coefficient bucket -> MC (mc4, mc8, mc16,
-  mc32, then the scaled-reference class mcs; compound averages from
-  each class's n_ref0 chunk on) -> inter residual add under mi_mask ->
-  intra wavefront, chunk by chunk -> loop filter -> pool refresh
+  residual transforms of every coefficient bucket -> MC (mc4, mc8,
+  mc16, mc32, then the scaled-reference class mcs; compound averages
+  from each class's n_ref0 chunk on) -> inter residual add under mi_mask
+  -> intra wavefront, chunk by chunk -> loop filter -> pool refresh
   (misc[5:13]) and ring row misc[13].
 
 On a CUDA pool the residual transforms (`ops/cuda/residual.py`, one
-launch per bucket), MC (`ops/cuda/mc.py`, one host call per frame that
-enqueues a grid per class and landing phase), the intra wavefront
-(`ops/cuda/intra.py`, one host call per frame that enqueues a grid per
-chunk) and the loop filter are hand-written kernels; the mask add, the
-refresh and the ring are torch ops.  On a CPU pool each kernel's plain
-torch twin runs instead.
+launch per frame for every bucket), MC (`ops/cuda/mc.py`, one host call
+per frame that enqueues a grid per class and landing phase), the intra
+wavefront (`ops/cuda/intra.py`, one persistent launch per frame that
+runs the chunks as a chain) and the loop filter are hand-written
+kernels; the mask add, the refresh and the ring are torch ops.  On a
+CPU pool each kernel's plain torch twin runs instead.
 
 Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
 transforms run in the int32 WRAPLOW domain; the ring is int16.  The loop
@@ -45,9 +45,9 @@ TPU's one-hot band formulation (and with it the headers' row band) is
 not ported.
 
 `flat` is the HOST numpy buffer.  The step uploads it once and reads
-every loop bound (the misc trip counts, lf_on, the refresh flags, the
-ring slot and chunk_bs) from the host copy, so it never waits on the
-device for a number.
+every loop bound (the misc trip counts, lf_on, the refresh flags and
+the ring slot) from the host copy, so it never waits on the device for
+a number.
 
 Padding.  The packer pads records with y = 0 on the wire; JAX drops
 their writes (`mode="drop"`) and clamps their reads.  Torch wraps
@@ -68,7 +68,7 @@ from ..ops.cuda.intra import intra_pass, intra_pass_batched
 from ..ops.cuda.lf422 import lf_chroma_422
 from ..ops.cuda.loopfilter import lf_frame, lf_frames
 from ..ops.cuda.mc import grid_bounds, mc_frame
-from ..ops.cuda.residual import residual_bucket, residual_coo
+from ..ops.cuda.residual import Bucket, residual_frame
 from . import pack
 
 I32 = torch.int32
@@ -129,24 +129,22 @@ def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int, ss=(1, 1)):
 # ----------------------------------------------------------------- residual
 
 
-def residual_stage(Rbuf, seg16, trips, segs, ha: int, wa: int, bd: int,
-                   lossless: bool, bucket=residual_bucket, coo=residual_coo):
-    """The residual transforms of a frame (or of a round's frames) into the
-    frame buffer Rbuf: one `bucket` call per coefficient bucket with trips
-    and one `coo` call per coo bucket (fused.py:533-602).  seg16(name, n)
-    gives the int16 device view [A, n, ...] of the first n rows of a
-    segment of each of the A flats, trips(slot) a misc trip count (the
-    round's most in the batched step); bucket and coo default to the
-    kernels' wrappers."""
-    for name, tx, ncoef in pack.COEFF_BUCKETS:
+def residual_buckets(trips, segs, bd: int, lossless: bool):
+    """The `Bucket`s of a frame (or of a round's frames), in the step's
+    order (fused.py:533-602), as segments of the flat: each coefficient
+    bucket with trips, then the coo buckets.  trips(slot) is a misc trip
+    count (the round's most in the batched step)."""
+    out = []
+    for name, tx, _ in pack.COEFF_BUCKETS:
         n = trips(pack.MISC_TRIP[name]) * pack.COEFF_CHUNK[name]
         # a lossless layout holds bucket tx0 only (fused.py:541)
         if not n or f"coeff_{name}" not in segs:
             continue
+        off, shape = segs[f"coeff_{name}"]
         # above 8 bits the high words: v = (hi << 15) + lo (fused.py:557)
-        bucket(Rbuf, seg16(f"coeff_{name}", n),
-               seg16(f"coeffh_{name}", n) if bd > 8 else None,
-               seg16(f"cpos_{name}", n), tx, ha, wa, bd, lossless)
+        out.append(Bucket(off, segs[f"coeffh_{name}"][0] if bd > 8 else None,
+                          segs[f"cpos_{name}"][0], n, shape[1], tx,
+                          1 if lossless else 0))
     for name, chunk, trip in (
             ("tx3c", pack.CHUNK_TX3C, pack.MISC_TRIP_TX3C),
             ("tx3cs", pack.CHUNK_TX3CS, pack.MISC_TRIP_TX3CS)):
@@ -154,8 +152,21 @@ def residual_stage(Rbuf, seg16, trips, segs, ha: int, wa: int, bd: int,
         # lossless frame
         n = trips(trip) * chunk
         if n and f"coeff_{name}" in segs:
-            coo(Rbuf, seg16(f"coeff_{name}", n), seg16(f"cpos_{name}", n),
-                ha, wa)
+            off, shape = segs[f"coeff_{name}"]
+            out.append(Bucket(off, None, segs[f"cpos_{name}"][0], n,
+                              shape[1], 3, 2))
+    return out
+
+
+def residual_stage(Rbuf, flats, trips, segs, ha: int, wa: int, bd: int,
+                   lossless: bool, run=residual_frame):
+    """The residual transforms of a frame (or of a round's frames) into the
+    frame buffer Rbuf: its buckets (`residual_buckets`), segments of the
+    int16 flats [A, nflat] on Rbuf's device, in one `run` call, by
+    default the kernel's wrapper (one launch on the card; the twins
+    bucket by bucket on the CPU)."""
+    run(Rbuf, flats, residual_buckets(trips, segs, bd, lossless), ha, wa,
+        bd)
 
 
 # ----------------------------------------------------------------- frame step
@@ -235,11 +246,9 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
         R = Rbuf[:-1].view(3, ha, wa)
 
         with record_function("vp9.residual"):
-            # one stream: each bucket's records as [1, n, ...]
-            residual_stage(Rbuf,
-                           lambda name, n: seg(name, n, torch.int16)[None],
-                           lambda slot: int(misc[slot]), segs, ha, wa, bd,
-                           lossless)
+            # one stream: the flat as [1, nflat]; every bucket in one call
+            residual_stage(Rbuf, flat_d[None], lambda slot: int(misc[slot]),
+                           segs, ha, wa, bd, lossless)
 
         with record_function("vp9.inter"):
             # every class with chunks, then mcs: one kernel host call,
@@ -265,7 +274,8 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
             n_intra = int(misc[3])
             if n_intra:
                 intra_pass(Fbuf, R, seg("intra", n_intra, torch.int16),
-                           host("chunk_bs"), n_intra, bd)
+                           seg("chunk_bs", n_intra, torch.int16), n_intra,
+                           bd)
 
         with record_function("vp9.loopfilter"):
             loop_filter(F, seg, int(misc[4]), mi_rows, mi_cols, bd, ss)
@@ -323,13 +333,13 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
 
     The A frames share one frame buffer of 3A planes (plus the trash
     element), frame k at planes 3k .. 3k + 2, and every stage runs once
-    for all of them: each coefficient bucket, each MC class (landed in
-    two steps, so that every compound average sees its first
-    prediction), the mask add, the intra chunks (one call for the
-    round: chunk index i of every stream at once, each record with its
-    own stream's block size; the chunks of two streams never depend on
-    each other), one `lf_frames` launch, one indexed pool refresh and one
-    indexed ring write.  A stream whose count in a bucket, class or chunk
+    for all of them: the coefficient buckets (one call for the round),
+    each MC class (landed in two steps, so that every compound average
+    sees its first prediction), the mask add, the intra chunks (one call
+    for the round: chunk index i of every stream is one step of the
+    chain, each record with its own stream's block size), one
+    `lf_frames` launch, one indexed pool refresh and one indexed ring
+    write.  A stream whose count in a bucket, class or chunk
     list is below the round's most runs the rest as padding records (the
     wire is zero there), as JAX's shared round-max trip counts do."""
     ha = ((mi_rows + 7) & ~7) * 8
@@ -378,10 +388,9 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
         misc16 = seg("misc", dtype=torch.int16)
 
         with record_function("vp9.residual"):
-            # each bucket one call over every stream's records; stream k's
-            # units land in planes 3k + plane
-            residual_stage(Rbuf, lambda name, n: seg(name, n, torch.int16),
-                           most, segs, ha, wa, bd, lossless)
+            # every bucket in one call over every stream's records;
+            # stream k's units land in planes 3k + plane
+            residual_stage(Rbuf, flat_d, most, segs, ha, wa, bd, lossless)
 
         with record_function("vp9.inter"):
             # every class with chunks in one kernel host call; chunks

@@ -12,8 +12,11 @@ pixel; have_up and have_left drawn apart from them), the three tl_modes,
 units on the canvas' right and bottom edges and straddling them, and
 padded records (chunks are zero-filled to ich records).
 
-Residual (`residual_bucket_case`, `residual_coo_case`): random units of
-one bucket at distinct block positions of A streams' planes, random
+Residual (`residual_bucket_case`, `residual_coo_case`, and
+`residual_frame_case` for a frame's whole bucket set, no two units of it
+at one position; `pack_buckets` lays cases out as the segments of a
+flat): random units of one bucket at distinct block positions
+of A streams' planes, random
 tx_types, some padded records (cpos all zero), coefficients sparse and
 moderate or extreme (the full int16 range at 8 bits; up to the bd +
 8-bit WRAPLOW range above, and raw random high and low words), and for
@@ -41,6 +44,8 @@ from types import SimpleNamespace
 import numpy as np
 
 from ..ops.cuda.mc import grid_bounds
+from ..ops.cuda.residual import Bucket
+from ..runtime import pack
 
 
 def _record(x0, y0, plane, mode, n_above, n_left, tl_mode, have_up,
@@ -203,6 +208,69 @@ def residual_coo_case(rng, A, n_units, npairs, ha, wa, extreme=False):
     pos = np.stack([_positions(rng, n_units, 32, 3, ha, wa)
                     for _ in range(A)])
     return pairs.astype(np.int16), pos
+
+
+def residual_frame_case(rng, A, bd, ha, wa, n_units, extreme=False):
+    """A frame's bucket set for one call of the residual kernel: [(coef,
+    coefh or None, pos, tx, kind)], every bucket of pack.COEFF_BUCKETS
+    (kind 0), the WHT on a tx0 bucket of 16 coefficients (kind 1) and, at
+    8 bits, the coo buckets of COO_PAIRS and COO16_PAIRS pairs (kind 2),
+    each with up to n_units units as residual_bucket_case and
+    residual_coo_case make them.  Each bucket owns its own share of the
+    32x32 tiles of each stream's 3 planes, so no two units of the set
+    write one pixel, as a frame's units never do."""
+    specs = [(tx, nc, 0) for _, tx, nc in pack.COEFF_BUCKETS] + [(0, 16, 1)]
+    if bd == 8:
+        specs += [(3, pack.COO_PAIRS, 2), (3, pack.COO16_PAIRS, 2)]
+    tcols = wa // 32
+    tiles = 3 * (ha // 32) * tcols
+    share = tiles // len(specs)
+    perm = [rng.permutation(tiles) for _ in range(A)]
+    out = []
+    for b, (tx, nc, kind) in enumerate(specs):
+        n = 4 << tx
+        per_tile = (32 // n) ** 2
+        m = min(n_units, share * per_tile)
+        pos = np.zeros((A, m, 4), np.int64)
+        for k in range(A):
+            tile, sub = np.divmod(rng.choice(share * per_tile, m,
+                                             replace=False), per_tile)
+            p, rest = np.divmod(perm[k][b * share + tile], tiles // 3)
+            ty, tx_ = np.divmod(rest, tcols)
+            sy, sx = np.divmod(sub, 32 // n)
+            pos[k] = np.stack([p, ty * 32 + sy * n + 1, tx_ * 32 + sx * n,
+                               rng.integers(0, 4, m)], 1)
+            pad = rng.random(m) < 0.125
+            pad[-1] = True
+            pos[k, pad] = 0
+        if kind == 2:
+            coef, coefh = residual_coo_case(rng, A, m, nc, ha, wa,
+                                            extreme)[0], None
+        else:
+            coef, coefh, _ = residual_bucket_case(rng, A, m, tx, nc, bd, ha,
+                                                  wa, extreme)
+        out.append((coef, coefh, pos.astype(np.int16), tx, kind))
+    return out
+
+
+def pack_buckets(cases):
+    """(src int16 [A, L], [residual.Bucket]): the arrays of bucket cases
+    [(coef, coefh or None, pos, tx, kind)], each [A, n, k], laid one
+    after another in each stream's row of src, as the wire's segments lie
+    in a flat, and the buckets that name them."""
+    parts, out, off = [], [], 0
+    for coef, coefh, pos, tx, kind in cases:
+        A, n, k = coef.shape
+        offs = []
+        for a in (coef, coefh, pos):
+            if a is None:
+                offs.append(None)
+                continue
+            offs.append(off)
+            parts.append(a.reshape(A, -1))
+            off += a.shape[1] * a.shape[2]
+        out.append(Bucket(offs[0], offs[1], offs[2], n, k, tx, kind))
+    return np.concatenate(parts, 1).astype(np.int16), out
 
 
 # ----------------------------------------------------------------- MC

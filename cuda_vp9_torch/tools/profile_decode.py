@@ -12,10 +12,11 @@ steps), then:
     edge, and the host wall time inside each span is summed.  Prints the
     frame rate of this pass and each stage's milliseconds and share, and
     the kernels' counters over the pass: the launches of the loop filter
-    (lf_frame, lf_chroma_422) and the residual kernel, the grids of the MC
-    kernel (and of its scaled class among them) and of the intra kernel,
-    with the host calls that enqueued them, and the calls of each plain
-    twin (0 on a CUDA device);
+    (lf_frame, lf_chroma_422), of the residual kernel (with the buckets
+    they ran) and of the intra kernel (with the chunks they ran), the
+    grids of the MC kernel (and of its scaled class among them), with the
+    host calls of intra and MC, and the calls of each plain twin (0 on a
+    CUDA device);
   * with --profile-frames K, decodes the first K frames under
     torch.profiler and prints the kernel launches, the device time of
     all kernels and copies, the device's busy share (that time over the
@@ -167,9 +168,10 @@ def main(argv=None):
     print(f"  {'outside step':16s} {rest * 1e3:10.1f} ms  {rest / wall:6.1%}"
           "  (parse, pack, read-back)")
     print(f"  kernel launches: lf_frame {LF.launches}, lf_chroma_422 "
-          f"{L4.launches}, residual {RS.launches}, mc {MC.launches} grids "
-          f"({MC.scaled_launches} scaled) in {MC.host_calls} host calls, "
-          f"intra {IN.launches} grids in {IN.host_calls} host calls; plain "
+          f"{L4.launches}, residual {RS.launches} ({RS.buckets} buckets), "
+          f"mc {MC.launches} grids ({MC.scaled_launches} scaled) in "
+          f"{MC.host_calls} host calls, intra {IN.launches} ({IN.chunks} "
+          f"chunks) in {IN.host_calls} host calls; plain "
           "calls: "
           + ", ".join(f"{k.__name__.rsplit('.', 1)[1]} {k.plain_calls}"
                       for k in _KERNELS))

@@ -9,14 +9,16 @@ kernel (csrc/intra.cu).
   * `intra_pass_batched` (2 streams, chunk index i of every stream in one
     call, each record with its own stream's block size, streams with
     fewer chunks) against one `intra_pass` per stream;
-  * a CUDA tensor never reaches a plain twin: with the kernel's loader
-    and the C call stubbed, both forms make one host call, count the
-    grids the C side reports and leave `plain_calls` alone;
-  * on the card (marked `cuda`; skips without a device): the kernel
-    against the twin, bit for bit, on the inputs of
-    `tools/kernel_cases.py` at bit depths 8, 10 and 12 on a 64x64 canvas,
-    at 10 bits on the 1920x1088 canvas with 256-unit chunks, and in the
-    batched form.
+  * a CUDA tensor never reaches a plain twin: with the kernel's loader,
+    its workspace and the C call stubbed, both forms make one host call
+    that passes chunk_bs as a device pointer, count the launch the C side
+    reports and the chunks it ran, and leave `plain_calls` alone;
+  * on the card (marked `cuda`; skips without a device): the persistent
+    kernel against the twin, bit for bit, one launch a pass, on the
+    inputs of `tools/kernel_cases.py` at bit depths 8, 10 and 12 on a
+    64x64 canvas, at 10 bits on the 1920x1088 canvas with 256-unit
+    chunks, on a single chunk and on chunks of 4x4 units only, and in
+    the batched form.
 
 This file imports JAX only inside the test that needs it, so on the
 card's machine it runs with `python -m pytest --noconftest -m cuda
@@ -139,36 +141,59 @@ def test_cuda_tensor_never_takes_the_twin(monkeypatch):
 
     def fake_call(fn, device, *args):
         calls.append(args)
-        return args[10]             # one grid per chunk, as the C side says
+        return 1                    # one persistent launch a pass
 
     monkeypatch.setattr(K, "_lib", lambda: "vp9_intra_pass")
+    monkeypatch.setattr(K, "workspace", lambda n, device: torch.empty(
+        K.WS_LINE * (n + 1), dtype=torch.int32))
     monkeypatch.setattr(_build, "call", fake_call)
     rng = np.random.default_rng(9)
     F, R, rec, cbs = KC.intra_frame(rng, 64, 64, 8, 64)
-    counts = (K.launches, K.host_calls, K.plain_calls)
+    counts = (K.launches, K.chunks, K.host_calls, K.plain_calls)
     dev = [_OnCuda(t) for t in (frame_buffer(F), torch.from_numpy(R),
-                                torch.from_numpy(rec))]
-    K.intra_pass(*dev, cbs, len(cbs), 8)
-    assert (K.launches, K.host_calls, K.plain_calls) == (
-        counts[0] + len(cbs), counts[1] + 1, counts[2])
-    assert calls[-1][8] == 1 and calls[-1][11] is not None  # host chunk_bs
+                                torch.from_numpy(rec), torch.from_numpy(cbs))]
+    K.intra_pass(*dev, len(cbs), 8)
+    assert (K.launches, K.chunks, K.host_calls, K.plain_calls) == (
+        counts[0] + 1, counts[1] + len(cbs), counts[2] + 1, counts[3])
+    # one stream, chunk_bs on the device, no counts; the workspace last
+    assert calls[-1][8] == 1 and calls[-1][4] == dev[3].data_ptr() \
+        and calls[-1][6] is None and calls[-1][10] == len(cbs)
     F, R, chunks, cbs, cnt = _batched_inputs(6, 8)
     n = int(cnt.max())
     K.intra_pass_batched(*(_OnCuda(t) for t in (frame_buffer(F),
                                                  torch.from_numpy(R), chunks,
                                                  cbs, cnt)), n, 8)
-    assert (K.launches, K.host_calls, K.plain_calls) == (
-        counts[0] + len(rec) + n, counts[1] + 2, counts[2])
-    assert calls[-1][8] == 4 and calls[-1][11] is None   # device chunk_bs
+    assert (K.launches, K.chunks, K.host_calls, K.plain_calls) == (
+        counts[0] + 2, counts[1] + len(rec) + n, counts[2] + 2, counts[3])
+    assert calls[-1][8] == 4 and calls[-1][6] == cnt.data_ptr() \
+        and calls[-1][5] == cbs.stride(0) and calls[-1][10] == n
     with pytest.raises(ValueError):
         K.intra_pass(_OnCuda(frame_buffer(F)), _OnCuda(torch.from_numpy(R)),
-                     _OnCuda(chunks[0].to(torch.int32)), cbs[0].numpy(), 1, 8)
+                     _OnCuda(chunks[0].to(torch.int32)), _OnCuda(cbs[0]), 1,
+                     8)
+    with pytest.raises(ValueError):     # chunk_bs as host ints
+        K.intra_pass(_OnCuda(frame_buffer(F[:3])),
+                     _OnCuda(torch.from_numpy(R[:3].copy())),
+                     _OnCuda(chunks[0]), cbs[0].numpy(), 1, 8)
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _held_on_card(dev, F, R, rec, cbs, bd):
+    """One kernel pass against the twin: bit for bit, one launch."""
+    Fk = frame_buffer(F).to(dev)
+    Fp = Fk.clone()
+    Rt, rt = torch.from_numpy(R).to(dev), torch.from_numpy(rec).to(dev)
+    counts = (K.launches, K.chunks)
+    K.intra_pass(Fk, Rt, rt, torch.from_numpy(cbs).to(dev), len(cbs), bd)
+    K.intra_pass_plain(Fp, Rt, rt, cbs, len(cbs), bd)
+    assert (K.launches, K.chunks) == (counts[0] + 1, counts[1] + len(cbs))
+    assert torch.equal(Fk[:-1], Fp[:-1])
+    assert not torch.equal(Fp, frame_buffer(F).to(dev))
 
 
 @pytest.mark.cuda
@@ -180,15 +205,21 @@ def _card():
 def test_kernel_matches_plain_on_card(bd, ha, wa, ich, codes):
     dev = _card()
     rng = np.random.default_rng(bd * 100 + ha + sum(codes))
-    F, R, rec, cbs = KC.intra_frame(rng, ha, wa, bd, ich, codes)
-    Fk = frame_buffer(F).to(dev)
-    Fp = Fk.clone()
-    Rt, rt = torch.from_numpy(R).to(dev), torch.from_numpy(rec).to(dev)
-    launches = K.launches
-    K.intra_pass(Fk, Rt, rt, cbs, len(cbs), bd)
-    K.intra_pass_plain(Fp, Rt, rt, cbs, len(cbs), bd)
-    assert K.launches == launches + len(cbs)
-    assert torch.equal(Fk[:-1], Fp[:-1])
+    _held_on_card(dev, *KC.intra_frame(rng, ha, wa, bd, ich, codes), bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one chunk", "4x4 only"])
+def test_kernel_single_chunk_and_4x4_on_card(case):
+    dev = _card()
+    rng = np.random.default_rng(len(case))
+    if case == "one chunk":
+        F, R, rec, cbs = KC.intra_frame(rng, 64, 64, 10, 64, (3, 2, 1))
+        rec, cbs = rec[:1], cbs[:1]
+    else:
+        F, R, rec, cbs = KC.intra_frame(rng, 128, 128, 8, 64, (0, 0, 0))
+        assert len(cbs) > 1 and not cbs.any()
+    _held_on_card(dev, F, R, rec, cbs, 10 if case == "one chunk" else 8)
 
 
 @pytest.mark.cuda
@@ -200,8 +231,9 @@ def test_batched_kernel_matches_plain_on_card(bd):
     Fp = Fk.clone()
     Rt = torch.from_numpy(R).to(dev)
     args = (chunks, cbs, cnt, int(cnt.max()), bd)
-    launches = K.launches
+    counts = (K.launches, K.chunks)
     K.intra_pass_batched(Fk, Rt, *args)
-    assert K.launches == launches + int(cnt.max())
+    assert (K.launches, K.chunks) == (counts[0] + 1,
+                                      counts[1] + int(cnt.max()))
     K.intra_pass_batched_plain(Fp, Rt, *args)
     assert torch.equal(Fk[:-1], Fp[:-1])

@@ -1,27 +1,32 @@
-"""The residual wrappers (cuda_vp9_torch/ops/cuda/residual.py) and their
+"""The residual wrapper (cuda_vp9_torch/ops/cuda/residual.py) and its
 kernel (csrc/residual.cu).
 
-  * `residual_bucket` on the CPU (the plain twin) against JAX
+  * `residual_frame` on the CPU (the plain twins) against JAX
     `cuda_vp9_tpu.runtime.fused._residual_pass` fed the JAX step's own
     expansion (a scan-prefix bucket scattered to raster order through
     the scan of each unit's tx_type), for every bucket of
     `pack.COEFF_BUCKETS` at bit depths 8 and 10 (above 8 bits from hi/lo
-    words), the lossless WHT on bucket tx0, and `residual_coo` for tx3c
-    and tx3cs ((index, value) pairs with (0, 0) padding), each with padded
+    words), the lossless WHT on bucket tx0, and the coo buckets tx3c and
+    tx3cs ((index, value) pairs with (0, 0) padding), each with padded
     records; the residual frame starts random, so untouched pixels count;
   * three streams in one call (stream k's units in planes 3k + plane)
     against one call per stream;
   * a CUDA tensor never reaches a plain twin: with the kernel's loader
-    and the C call stubbed, each call is one launch and `plain_calls`
-    stays;
+    and the C call stubbed, each call is one launch of a bucket table
+    and `plain_calls` stays; `fused.residual_stage` on kf01's keyframe
+    passes one table that holds every bucket it has, in the step's
+    order, with block ranges that partition the units;
   * on the card (marked `cuda`; skips without a device): the kernel
-    against the twin, bit for bit, on every bucket, both coo buckets and
-    the WHT at bit depths 8, 10 and 12, with moderate and extreme inputs
+    against the twins, bit for bit, one launch for a whole bucket set
+    (every bucket, the WHT and, at 8 bits, both coo buckets) at bit
+    depths 8, 10 and 12, with moderate and extreme inputs
     (`tools/kernel_cases.py`), for one stream and for three.
 
 This file imports JAX only inside the tests that need it, so on the
 card's machine it runs with `python -m pytest --noconftest -m cuda
 tests/test_torch_residual_kernel.py`.  Tolerance 0: integer math."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -69,6 +74,12 @@ def _jax_bucket(R0, coef, coefh, pos, tx, ncoef, bd, lossless=False):
                                         jnp.asarray(p), tx, lossless, bd))
 
 
+def _frame(Rb, cases, bd):
+    """residual_frame on bucket cases laid out as a flat's segments."""
+    src, bks = KC.pack_buckets(cases)
+    K.residual_frame(Rb, torch.from_numpy(src), bks, HA, WA, bd)
+
+
 @pytest.mark.parametrize("tx", [0, 1, 2, 3])
 @pytest.mark.parametrize("bd", [8, 10])
 def test_bucket_matches_jax(bd, tx):
@@ -84,9 +95,7 @@ def test_bucket_matches_jax(bd, tx):
         want = _jax_bucket(Rb[:-1].view(3, HA, WA).numpy().copy(), coef[0],
                            None if coefh is None else coefh[0], pos[0], tx,
                            ncoef, bd, lossless)
-        K.residual_bucket(Rb, torch.from_numpy(coef),
-                          None if coefh is None else torch.from_numpy(coefh),
-                          torch.from_numpy(pos), tx, HA, WA, bd, lossless)
+        _frame(Rb, [(coef, coefh, pos, tx, int(lossless))], bd)
         got = Rb[:-1].view(3, HA, WA).numpy()
         bad = np.argwhere(got != want)
         assert bad.size == 0, \
@@ -111,8 +120,7 @@ def test_coo_matches_jax():
             jnp.asarray(Rb[:-1].view(3, HA, WA).numpy().copy()),
             jnp.asarray(full[:, :1024]), jnp.asarray(pos[0].astype(np.int32)),
             3, False, 8))
-        K.residual_coo(Rb, torch.from_numpy(pairs), torch.from_numpy(pos),
-                       HA, WA)
+        _frame(Rb, [(pairs, None, pos, 3, 2)], 8)
         assert np.array_equal(Rb[:-1].view(3, HA, WA).numpy(), want), npairs
 
 
@@ -123,14 +131,12 @@ def test_streams_match_per_stream_calls():
                                                    bd, HA, WA)
         Rb = _rbuf(rng, 9)
         Rs = Rb.clone()
-        hi = None if coefh is None else torch.from_numpy(coefh)
-        K.residual_bucket(Rb, torch.from_numpy(coef), hi,
-                          torch.from_numpy(pos), tx, HA, WA, bd)
+        _frame(Rb, [(coef, coefh, pos, tx, 0)], bd)
         for k in range(3):
             part = Rs[k * 3 * HA * WA:(k + 1) * 3 * HA * WA + 1].clone()
-            K.residual_bucket(part, torch.from_numpy(coef[k:k + 1]),
-                              None if hi is None else hi[k:k + 1],
-                              torch.from_numpy(pos[k:k + 1]), tx, HA, WA, bd)
+            _frame(part, [(coef[k:k + 1],
+                           None if coefh is None else coefh[k:k + 1],
+                           pos[k:k + 1], tx, 0)], bd)
             assert torch.equal(Rb[k * 3 * HA * WA:(k + 1) * 3 * HA * WA],
                                part[:-1]), f"stream {k}"
 
@@ -147,33 +153,101 @@ class _OnCuda:
         return getattr(self._t, name)
 
 
-def test_cuda_tensor_never_takes_the_twin(monkeypatch):
+def _table(ptr, n):
+    """The [n, DESC_WORDS] descriptor table the fake C call was given."""
+    words = (ctypes.c_int64 * (n * K.DESC_WORDS)).from_address(ptr)
+    return np.ctypeslib.as_array(words).reshape(n, K.DESC_WORDS).copy()
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Stub the kernel's loader, the C call (recording each call with its
+    table) and the scan tables' upload; returns the calls."""
     calls = []
 
     def fake_call(fn, device, *args):
-        calls.append(args)
+        calls.append((args, _table(args[1], args[2])))
         return 1
 
-    monkeypatch.setattr(K, "_lib", lambda: "vp9_residual")
+    scan_table = K.scan_table
+    monkeypatch.setattr(K, "_lib", lambda: "vp9_residual_frame")
     monkeypatch.setattr(_build, "call", fake_call)
+    monkeypatch.setattr(K, "scan_table", lambda tx, nc, device, dtype: (
+        scan_table(tx, nc, "cpu", dtype)))
+    return calls
+
+
+def test_cuda_tensor_never_takes_the_twin(fake_card):
+    calls = fake_card
     rng = np.random.default_rng(55)
-    counts = (K.launches, K.plain_calls)
+    counts = (K.launches, K.buckets, K.plain_calls)
     coef, coefh, pos = KC.residual_bucket_case(rng, 2, N_UNITS, 0, 16, 10,
                                                HA, WA)
-    K.residual_bucket(_OnCuda(_rbuf(rng, 6)),
-                      *(_OnCuda(torch.from_numpy(a)) for a in (coef, coefh,
-                                                               pos)),
-                      0, HA, WA, 10, True)
-    assert calls[-1][11] == 1 and calls[-1][7] == 2       # WHT, 2 streams
+    src, bks = KC.pack_buckets([(coef, coefh, pos, 0, 1)])
+    src = _OnCuda(torch.from_numpy(src))
+    K.residual_frame(_OnCuda(_rbuf(rng, 6)), src, bks, HA, WA, 10)
+    (args, table), = calls
+    assert args[2:] == (1, 6, HA, WA, 10)               # 1 bucket, 6 planes
+    assert table[0, 4:].tolist() == [src.stride(0)] * 2 + [
+        N_UNITS, 2, 0, 1, 16, 0]                         # WHT, 2 streams
+    assert table[0, :3].tolist() == [src.data_ptr() + 2 * o for o in (
+        bks[0].coef, bks[0].coefh, bks[0].pos)]
     pairs, pos = KC.residual_coo_case(rng, 1, N_UNITS, 16, HA, WA)
-    K.residual_coo(_OnCuda(_rbuf(rng, 3)), _OnCuda(torch.from_numpy(pairs)),
-                   _OnCuda(torch.from_numpy(pos)), HA, WA)
-    assert calls[-1][11] == 2 and calls[-1][8] == 3       # pairs, 32x32
-    assert (K.launches, K.plain_calls) == (counts[0] + 2, counts[1])
+    coef, _, cpos = KC.residual_bucket_case(rng, 1, N_UNITS, 1, 10, 8, HA,
+                                            WA)
+    src, bks = KC.pack_buckets([(coef, None, cpos, 1, 0),
+                                (pairs, None, pos, 3, 2)])
+    K.residual_frame(_OnCuda(_rbuf(rng, 3)), _OnCuda(torch.from_numpy(src)),
+                     bks, HA, WA, 8)
+    table = calls[-1][1]
+    # a scan-prefix 8x8 bucket (16 units a block), then the coo pairs
+    assert table[:, 8:].tolist() == [[1, 0, 10, 0], [3, 2, 32, 1]]
+    assert table[0, 3] != 0 and table[1, 3] == 0         # scan, none
+    assert (K.launches, K.buckets, K.plain_calls) == (
+        counts[0] + 2, counts[1] + 3, counts[2])
     with pytest.raises(ValueError):    # high words above 8 bits only
-        K.residual_bucket(_OnCuda(_rbuf(rng, 3)),
-                          *(_OnCuda(torch.from_numpy(a)) for a in (
-                              coef[:1], coefh[:1], pos[:1])), 0, HA, WA, 8)
+        K.residual_frame(_OnCuda(_rbuf(rng, 3)),
+                         _OnCuda(torch.from_numpy(src)),
+                         [bks[0]._replace(coefh=bks[0].coef)], HA, WA, 8)
+    with pytest.raises(ValueError):    # a segment past the flat's end
+        K.residual_frame(_OnCuda(_rbuf(rng, 3)),
+                         _OnCuda(torch.from_numpy(src)),
+                         [bks[1]._replace(n=N_UNITS + 1)], HA, WA, 8)
+
+
+def test_residual_stage_builds_one_table(fake_card):
+    """fused.residual_stage on the card path (kf01's keyframe, 64x64):
+    one call whose table holds every bucket the frame has, in the step's
+    order, with its records, and whose block ranges partition the
+    units."""
+    from cuda_vp9_torch.runtime import fused as TF
+    from test_torch_intra_pass import keyframe_flat
+
+    calls = fake_card
+    flat, layout, mi_rows, mi_cols = keyframe_flat("kf01_64x64")
+    misc = layout.view(flat, "misc").astype(np.int64)
+    flat_t = torch.from_numpy(flat)
+    TF.residual_stage(_OnCuda(TF.frame_buffer(64, 64, "cpu")),
+                      _OnCuda(flat_t[None]), lambda slot: int(misc[slot]),
+                      layout.segs, 64, 64, 8, False)
+    (args, table), = calls
+    want = [(name, tx, int(misc[pack.MISC_TRIP[name]])
+             * pack.COEFF_CHUNK[name]) for name, tx, _ in pack.COEFF_BUCKETS]
+    want += [(name, 3, int(misc[slot]) * chunk) for name, slot, chunk in (
+        ("tx3c", pack.MISC_TRIP_TX3C, pack.CHUNK_TX3C),
+        ("tx3cs", pack.MISC_TRIP_TX3CS, pack.CHUNK_TX3CS))]
+    want = [w for w in want if w[2] and f"coeff_{w[0]}" in layout.segs]
+    assert len(want) > 1 and args[2] == len(table) == len(want)
+    first = 0
+    for (name, tx, n), row in zip(want, table):
+        off = layout.segs[f"coeff_{name}"][0]
+        assert row[0] == flat_t.data_ptr() + 2 * off      # its records
+        assert row[6:9].tolist() == [n, 1, tx] and row[11] == first
+        first += -(-n // (128 // (4 << tx)))
+    # each block in exactly one range, each range's blocks hold its units
+    blocks = [-(-r[6] * r[7] // (128 // (4 << r[8]))) for r in table]
+    assert [int(r[11]) for r in table] == np.cumsum([0] + blocks[:-1]
+                                                     ).tolist()
 
 
 def _card():
@@ -188,29 +262,16 @@ def _card():
 def test_kernel_matches_plain_on_card(bd, streams):
     dev = _card()
     rng = np.random.default_rng(bd * 10 + streams)
-    cases = [(tx, nc, False) for _, tx, nc in pack.COEFF_BUCKETS]
-    cases.append((0, 16, True))
     for extreme in (False, True):
-        for tx, ncoef, lossless in cases:
-            coef, coefh, pos = KC.residual_bucket_case(
-                rng, streams, 40, tx, ncoef, bd, 128, 128, extreme)
-            args = [None if a is None else torch.from_numpy(a).to(dev)
-                    for a in (coef, coefh, pos)]
-            Rk = _rbuf(rng, 3 * streams, 128, 128).to(dev)
-            Rp = Rk.clone()
-            launches = K.launches
-            K.residual_bucket(Rk, *args, tx, 128, 128, bd, lossless)
-            K.residual_bucket_plain(Rp, *args, tx, 128, 128, bd, lossless)
-            assert K.launches == launches + 1
-            assert torch.equal(Rk[:-1], Rp[:-1]), \
-                f"tx {tx} ncoef {ncoef} lossless {lossless} extreme {extreme}"
-        if bd == 8:
-            for npairs in (pack.COO_PAIRS, pack.COO16_PAIRS):
-                pairs, pos = KC.residual_coo_case(rng, streams, 20, npairs,
-                                                  128, 128, extreme)
-                pt, qt = (torch.from_numpy(a).to(dev) for a in (pairs, pos))
-                Rk = _rbuf(rng, 3 * streams, 128, 128).to(dev)
-                Rp = Rk.clone()
-                K.residual_coo(Rk, pt, qt, 128, 128)
-                K.residual_coo_plain(Rp, pt, qt, 128, 128)
-                assert torch.equal(Rk[:-1], Rp[:-1]), f"coo {npairs}"
+        src, bset = KC.pack_buckets(KC.residual_frame_case(
+            rng, streams, bd, 128, 128, 40, extreme))
+        src = torch.from_numpy(src).to(dev)
+        Rk = _rbuf(rng, 3 * streams, 128, 128).to(dev)
+        Rp = Rk.clone()
+        counts = (K.launches, K.buckets)
+        K.residual_frame(Rk, src, bset, 128, 128, bd)
+        assert (K.launches, K.buckets) == (counts[0] + 1,
+                                           counts[1] + len(bset))
+        K.residual_frame_plain(Rp, src, bset, 128, 128, bd)
+        assert torch.equal(Rk[:-1], Rp[:-1]), f"extreme {extreme}"
+        assert len(bset) == 13 + 2 * (bd == 8)
