@@ -40,14 +40,16 @@ Phases, each of which exits non-zero on failure:
          two coo buckets, no two units at one position), against the
          per-bucket twins at bit depths 8, 10 and 12, with moderate and
          extreme inputs and padded records, for one stream and for three;
-       - the MC kernel (K3, and K6 for the scaled class) against its
-         plain twins on every case of kernel_cases.MC_CASES and on two
-         large ones (1920x1088 at 10 bits with the HD chunk lengths, and
-         16 streams of 640x384 in one batched call): every tile class,
-         bit depths 8, 10 and 12, 4:2:0, 4:4:4 and 4:2:2, pool canvases
-         larger than the frame, sources past the crop, compound chunks,
-         padded records; one host call a frame or round, one grid per
-         class and landing phase with chunks;
+       - the MC kernel (K3, K6 for the scaled class, and the inter
+         residual add as its last phase) against its plain twin on every
+         case of kernel_cases.MC_CASES and on two large ones (1920x1088
+         at 10 bits with the HD chunk lengths, and 16 streams of 640x384
+         in one batched call), each with its mask, and on the first
+         case's mask alone: every tile class, bit depths 8, 10 and 12,
+         4:2:0, 4:4:4 and 4:2:2, pool canvases larger than the frame,
+         sources past the crop, compound chunks, padded records, pixels
+         that two phases write (some case must have them); one host call
+         and one launch a call, with the phases its table lists;
   3. run the frame step once at one 64x64 superblock (fused.entry);
   4. the main paths, each with the kernel counts set to 0 just before it
      and read just after:
@@ -63,9 +65,9 @@ Phases, each of which exits non-zero on failure:
          chroma kernel on p1_02 and p1_04, the intra and the residual
          kernels on every stream (each starts with a keyframe), the MC
          kernel on every stream (each has inter frames) and its scaled
-         class on cp01, the intra and the residual kernels with at most
-         one launch per frame each (intra: one per host call), MC from at
-         most one host call per frame, and no plain version ever;
+         class on cp01, the intra, the residual and the MC kernels with
+         at most one launch per frame each (intra and MC: one per host
+         call), and no plain version ever;
        - the tile probe through its entry point (tools/tile_probe.py),
          checked against the probe's NumPy reference;
        - the multi-stream decoders (runtime/multistream.py), each run on
@@ -79,8 +81,9 @@ Phases, each of which exits non-zero on failure:
          sc01 alone), and when every frame joined the batch the loop
          filter must have launched once per round with a level, as the
          port's parser reads the headers, the intra and the residual
-         kernels with at most one launch per round each and MC from at
-         most one host call per round; no plain version ever;
+         kernels with at most one launch per round each and MC with one
+         launch per host call, at most one per round; no plain version
+         ever;
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
@@ -88,12 +91,16 @@ Phases, each of which exits non-zero on failure:
      (its residual buckets in one launch, then its 2703 intra chunks in
      one), beside the intra chain's hand-off floor (the same chain with
      no work) and the gap of one dependent empty launch, with ptxas's
-     registers, spills and shared memory of both kernels; the MC kernel on nc03's busiest
-     inter frame, on hd01's first inter frame and (the scaled class
-     alone) on cp01's busiest scaled frame, as the frame step feeds it,
-     each held against the twins; each timed run of the loop filter is
-     also held against the plain result, and lf_frames on 16 640x384
-     frames is timed beside 16 lf_frame calls.
+     registers, spills and shared memory of both kernels; the MC kernel
+     on nc03's busiest inter frame and on hd01's first inter frame (mask
+     phase included), on cp01's busiest scaled frame (the scaled class
+     alone) and on nc03's busiest frame's mask alone, as the frame step
+     feeds it, each held against the twin, beside the same launch with
+     no work (vp9_mc_chain_floor), the wrapper call's host time and the
+     torch mask add that the last phase replaced, with ptxas's
+     registers, spills and shared memory; each timed run of the loop
+     filter is also held against the plain result, and lf_frames on 16
+     640x384 frames is timed beside 16 lf_frame calls.
 
 The last two lines are a JSON record of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without
@@ -108,6 +115,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -140,6 +148,9 @@ MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
 RESIZE = ("in02_352x288", "sc01_352x288_scaled")
 MSD = ("kf01_64x64", "kf03_odd_98x66")
 KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc")
+# mc.cu built with other register caps (blocks an SM at least; the
+# source's own is 4), timed beside it in phase 5
+MC_CAP_BUILDS = tuple((f"VP9_MC_MIN_BLOCKS={b}",) for b in (1, 6, 8))
 # intra kernel cases: (bd, ha, wa, ich, block size code of planes 0..2,
 # chunks kept): every block size at every bit depth, the 1080p canvas
 # with 256-unit chunks, a single chunk, and chunks of 4x4 units only
@@ -595,8 +606,8 @@ def multi_stream_paths(LF, counted):
               f"lf_frames launches {LF.launches} (rounds with a level: "
               f"{want}), intra launches {IN.launches} ({IN.chunks} chunks) in "
               f"{IN.host_calls} host calls, residual launches {RS.launches} "
-              f"({RS.buckets} buckets), mc grids "
-              f"{MC.launches} ({MC.scaled_launches} scaled) in "
+              f"({RS.buckets} buckets), mc launches "
+              f"{MC.launches} ({MC.phases} phases) in "
               f"{MC.host_calls} host calls, plain calls "
               f"{[k.plain_calls for k in counted]}, cold {dt:.2f} s "
               f"({dt / max(bd.rounds, 1):.3f} s a round)")
@@ -606,11 +617,11 @@ def multi_stream_paths(LF, counted):
             raise SystemExit(f"batched {label}: decode check failed")
         if not 0 < IN.launches == IN.host_calls <= bd.rounds + unbatched \
                 or not 0 < RS.launches <= bd.rounds + unbatched \
-                or not 0 < MC.host_calls <= bd.rounds + unbatched \
-                or not MC.launches:
+                or not 0 < MC.launches == MC.host_calls \
+                <= bd.rounds + unbatched:
             raise SystemExit(f"batched {label}: the intra, residual or MC "
-                             "kernel never ran, or intra or residual made "
-                             "more than one launch (MC: host call) a round")
+                             "kernel never ran, or made more than one "
+                             "launch (intra, MC: host call) a round")
         if names is RESIZE:
             alone = TorchRecon("cuda")
             dec = NativeVp9Decoder(recon_fn=alone)
@@ -895,25 +906,31 @@ def coeff_buckets():
 # int32 operations per pixel of the MC stage: a multiply and an add per
 # nonzero tap, the rounding (an add and a shift) and the clip (2) of each
 # pass's pixel, the landing's bounds tests (4) per output pixel, and a
-# compound average's (3)
+# compound average's (3); the mask phase's bit test (2), add and clip (3)
+# per masked pixel
 MC_TAP_OPS = 2
 MC_ROUND_OPS = 4
 MC_LAND_OPS = 4
 MC_AVG_OPS = 3
+MC_MASK_OPS = 5
 
 
-def mc_work(pool, kernels, classes, scaled, ha, wa):
+def mc_work(pool, kernels, flats, classes, mask, ha, wa):
     """(bytes, operations) of one single-stream mc_frame call on these
-    arguments (device views), counting what this call's data needs: each
-    class's records and headers read once and the filter table once; of
-    the pool, the distinct source pixels that a nonzero tap of a live
-    tile reaches, after the crop clamps, read once (a phase-0 pass is a
-    copy, and neighbouring tiles share their aprons); the distinct
-    destination pixels written once, and those that a compound second
-    averages into and no first of this call writes read once; per live
-    tile, the operations of its nonzero taps on the intermediate pixels
-    that its vertical taps reach and on its output pixels, with
-    MC_ROUND_OPS, MC_LAND_OPS and MC_AVG_OPS."""
+    arguments (device tensors; flats [1, nflat]), counting what this
+    call's data needs: each class's records and headers read once and the
+    filter table once; of the pool, the distinct source pixels that a
+    nonzero tap of a live tile reaches, after the crop clamps, read once
+    (a phase-0 pass is a copy, and neighbouring tiles share their
+    aprons); the distinct destination pixels written once, and those that
+    a compound second averages into and no first of this call writes
+    read once; per live tile, the operations of its nonzero taps on the
+    intermediate pixels that its vertical taps reach and on its output
+    pixels, with MC_ROUND_OPS, MC_LAND_OPS and MC_AVG_OPS; the mask
+    phase: its words read once, R read once over the masked pixels, and
+    F read and written once over those that no MC phase writes, with
+    MC_MASK_OPS a masked pixel."""
+    from cuda_vp9_torch.ops.cuda import mc as MC
     dev = pool.device
     S, _, pha, pwa = pool.shape
     src = torch.zeros(pool.numel(), dtype=torch.bool, device=dev)
@@ -923,15 +940,16 @@ def mc_work(pool, kernels, classes, scaled, ha, wa):
     k8 = torch.arange(8, device=dev)
     nbytes, ops = kernels.nbytes, 0
 
-    def live(units, hdrs, n, r0, rw, valid):
-        """The live records [T, rw] (int64) of a class, their chunk
+    def live(c, rw, valid):
+        """The live records [T, rw] (int64) of class c, their chunk
         headers and whether each is a first prediction."""
-        CH = units.shape[2]
-        u = units[0, :n].reshape(-1, rw).long()
-        hd = hdrs[0, :n].long().repeat_interleave(CH, 0)
-        first = torch.arange(len(u), device=dev) < int(r0[0]) * CH
+        units, hdrs, r0 = MC.class_views(flats, c)
+        u = units[0].reshape(-1, rw).long()
+        hd = hdrs[0].long().repeat_interleave(c.ch, 0)
+        first = torch.arange(len(u), device=dev) < int(r0[0]) * c.ch
         keep = u[:, valid] != 0
-        return u[keep], hd[keep], first[keep]
+        nb = units[0].nbytes + hdrs[0].nbytes
+        return u[keep], hd[keep], first[keep], nb
 
     def land(plane, dy, dx, first, w):
         r = torch.arange(w, device=dev)
@@ -951,8 +969,9 @@ def mc_work(pool, kernels, classes, scaled, ha, wa):
             m[:, k:k + w] |= taps[:, k:k + 1]
         return m
 
-    for w, units, hdrs, n, r0, _ in classes:
-        u, hd, first = live(units, hdrs, n, r0, 4, 1)
+    for c in (c for c in classes if c.w):
+        w = c.w
+        u, hd, first, nb = live(c, 4, 1)
         filt = (u[:, 0] >> 13) & 3
         tx, ty = nz[filt, u[:, 3] & 15], nz[filt, u[:, 2] & 15]   # [T, 8]
         dx, dy = u[:, 0] & 0x1FFF, u[:, 1] - 1
@@ -966,15 +985,14 @@ def mc_work(pool, kernels, classes, scaled, ha, wa):
         lin = ((base[:, None] + rows) * pwa)[:, :, None] + cols[:, None, :]
         src[lin[need_r[:, :, None] & need_c[:, None, :]]] = True
         land(hd[:, 1], dy, dx, first, w)
-        nbytes += units[0, :n].nbytes + hdrs[0, :n].nbytes
+        nbytes += nb
         ops += int((need_r.sum(1) * w * (MC_TAP_OPS * tx.sum(1)
                                          + MC_ROUND_OPS)).sum()) \
             + int((w * w * (MC_TAP_OPS * ty.sum(1) + MC_ROUND_OPS
                             + MC_LAND_OPS)).sum()) \
             + int((~first).sum()) * MC_AVG_OPS * w * w
-    if scaled is not None:
-        units, hdrs, n, r0, _ = scaled
-        u, hd, first = live(units, hdrs, n, r0, 16, 2)
+    for c in (c for c in classes if not c.w):
+        u, hd, first, nb = live(c, 16, 2)
         filt = u[:, 8].clamp(0, 3)
         c4 = torch.arange(4, device=dev)
         xq4 = u[:, 6:7] + c4 * u[:, 12:13].clamp(0, 32)           # [T, 4]
@@ -996,57 +1014,100 @@ def mc_work(pool, kernels, classes, scaled, ha, wa):
             + cols[:, None]                                        # [T, 14, 4, 8]
         src[lin[need_r[:, :, None, None] & tx[:, None]]] = True
         land(u[:, 0], u[:, 2] - 1, u[:, 1], first, 4)
-        nbytes += units[0, :n].nbytes + hdrs[0, :n].nbytes
+        nbytes += nb
         ops += int((need_r.sum(1) * (MC_TAP_OPS * tx.sum((1, 2))
                                      + 4 * MC_ROUND_OPS)).sum()) \
             + int((4 * (MC_TAP_OPS * ty.sum(2) + MC_ROUND_OPS
                         + MC_LAND_OPS)).sum()) \
             + int((~first).sum()) * MC_AVG_OPS * 16
+    if mask is not None:
+        words = MC.mask_words(flats, mask)
+        m = ((words[0].long()[..., None] >> torch.arange(16, device=dev))
+             & 1).reshape(mask.mi_rows, -1)[:, :mask.mi_cols] != 0
+        masked = torch.zeros(3, ha, wa, dtype=torch.bool, device=dev)
+        for p in range(3):
+            gy, gx = 8 >> (mask.ssy if p else 0), 8 >> (mask.ssx if p else 0)
+            cm = m.repeat_interleave(gy, 0).repeat_interleave(gx, 1)
+            masked[p, :cm.shape[0], :cm.shape[1]] = cm
+        masked = masked.reshape(-1)
+        # a masked pixel that an MC phase writes costs only R's read: the
+        # launch reads F back through L2 and writes it once (counted
+        # below); one that no phase writes reads and writes F as well
+        landed = int((masked & (firsts | seconds)).sum())
+        n_masked = int(masked.sum())
+        nbytes += words.nbytes + 4 * landed + 12 * (n_masked - landed)
+        ops += MC_MASK_OPS * n_masked
     nbytes += 4 * int(src.sum() + (firsts | seconds).sum()
                       + (seconds & ~firsts).sum())
     return nbytes, ops
 
 
 def mc_vs_plain(dev, MC, KC) -> int:
-    """Phase 2: the MC kernel against its plain twins on every case of
-    kernel_cases.MC_CASES and MC_BIG_CASES: mc_frame against
-    mc_frame_plain, for one stream or several; one host call and one
-    grid per class and landing phase with chunks.  Exits on a difference; returns
-    the largest error (0)."""
+    """Phase 2: the MC kernel against its plain twin on every case of
+    kernel_cases.MC_CASES and MC_BIG_CASES, each with its mask (the mask
+    phase after the classes), and on the first case's mask alone (no
+    class): mc_frame against mc_frame_plain, for one stream or several;
+    one host call and one launch a call, with the phases the table
+    lists.  Prints, per case, the pixels that more than one phase writes:
+    phases of two tile classes, a class's seconds over its own firsts,
+    the mask phase over MC's pixels; fails unless some case has pixels
+    of two classes (so that the class-to-class hand-offs' order decides
+    a result).  Exits on a difference; returns the largest error (0)."""
     from cuda_vp9_torch import models
     rng = np.random.default_rng(606)
     kern = torch.as_tensor(np.asarray(models.FILTER_KERNELS, np.int32),
                            device=dev)
+    runs, overlaps = [], []
     for case in list(KC.MC_CASES) + list(MC_BIG_CASES):
         bd, ss, ha, wa, pad, n, chunks, scaled = case
         c = KC.mc_case(rng, bd, ss, ha, wa, pad, n, chunks, scaled)
-        fl = torch.from_numpy(c.flats).to(dev)
-        F0 = frame_buf(dev, c.F)
+        what = (f"{n} x {ha}x{wa} bd {bd} chroma {ss} pool +{pad} chunks "
+                f"{chunks or KC.MC_CHUNKS} scaled {scaled}")
+        runs.append((c, what, False))
+        if not runs[1:]:
+            runs.append((c, what + ", the mask alone", True))
+    for c, what, mask_only in runs:
+        n = len(c.flats)
+        flats = c.flats[:1] if n == 1 else c.flats
+        fl = torch.from_numpy(flats).to(dev)
         if n == 1:
             pool, active = c.pool[8 * int(c.active[0]):][:8], None
-            classes, scaled_args = KC.mc_args(c, fl, 0)
+            classes, mask = KC.mc_args(c, fl, 0)
         else:
             pool, active = c.pool, torch.from_numpy(c.active).to(dev)
-            classes, scaled_args = KC.mc_args(c, fl)
-        args = (torch.from_numpy(pool).to(dev), kern, classes, scaled_args,
-                active, bd, ha, wa)
-        want = KC.mc_grids(c)[0]
+            classes, mask = KC.mc_args(c, fl)
+        if mask_only:
+            classes = []
+        args = (frame_buf(dev, c.R), torch.from_numpy(pool).to(dev), kern, fl,
+                classes, mask, active, c.bd, c.ha, c.wa)
+        F0 = frame_buf(dev, c.F)
+        want_phases, want_scaled = KC.mc_phases(classes, mask)
+        overlap = KC.phase_overlap(c, flats, classes, mask)
+        overlaps.append(overlap.cross)
         Fk, Fp = F0.clone(), F0.clone()
-        grids, calls = MC.launches, MC.host_calls
+        before = (MC.launches, MC.host_calls, MC.phases, MC.scaled_calls)
         MC.mc_frame(Fk, *args)
-        grids, calls = MC.launches - grids, MC.host_calls - calls
+        launches, calls, phases, scaled_calls = (
+            a - b for a, b in zip((MC.launches, MC.host_calls, MC.phases,
+                                   MC.scaled_calls), before))
         MC.mc_frame_plain(Fp, *args)
         torch.cuda.synchronize()
         err = int((Fk[:-1] - Fp[:-1]).abs().max())
         changed = int((Fp != F0).sum())
-        what = (f"{n} x {ha}x{wa} bd {bd} chroma {ss} pool +{pad} chunks "
-                f"{chunks or KC.MC_CHUNKS} scaled {scaled}")
         print(f"mc kernel vs plain {what}: max_abs_err {err} (tolerance 0), "
-              f"{changed} pixels written, {grids} grids (want {want}) in "
+              f"{changed} pixels written; pixels written by more than one "
+              f"phase: {overlap.cross} by two classes, {overlap.seconds} by "
+              f"seconds over their class's firsts, {overlap.mask} by the "
+              f"mask over MC; {launches} launch of {phases} phases (want "
+              f"{want_phases}, scaled class {bool(scaled_calls)}) in "
               f"{calls} host call")
-        if err or not changed or grids != want or calls != 1 \
-                or Fk[-1] != F0[-1]:
+        if err or not changed or launches != 1 or calls != 1 \
+                or phases != want_phases \
+                or bool(scaled_calls) != want_scaled or Fk[-1] != F0[-1]:
             raise SystemExit(f"mc kernel disagrees at {what}")
+    if not any(overlaps):
+        raise SystemExit("no MC case writes a pixel from two tile classes: "
+                         "the class-to-class hand-offs' order went untested")
     return 0
 
 
@@ -1055,20 +1116,25 @@ def capture_mc(name, n_frames, key):
     and return the arguments of the call that key(index, live unscaled
     tiles, live scaled tiles) ranks highest (None: not a candidate), its
     frame buffer as it was before the call."""
+    from cuda_vp9_torch.ops.cuda import mc as MC
     from cuda_vp9_torch.runtime import fused
     real, best, calls = fused.mc_frame, {}, [0]
 
-    def spy(Fbuf, pool, kernels, classes, scaled, active, bd, ha, wa):
-        live = sum(int((c[1][:, :c[3], :, 1] != 0).sum()) for c in classes)
-        live_s = int((scaled[0][:, :scaled[2], :, 2] != 0).sum()) \
-            if scaled else 0
-        k = key(calls[0], live, live_s)
+    def spy(Fbuf, Rbuf, pool, kernels, flats, classes, mask, active, bd, ha,
+            wa):
+        live = [0, 0]
+        for c in classes:
+            units = MC.class_views(flats, c)[0]
+            live[c.w == 0] += int((units[..., 1 if c.w else 2] != 0).sum())
+        k = key(calls[0], *live)
         calls[0] += 1
         if k is not None and ("key" not in best or k > best["key"]):
-            best.update(key=k, args=(Fbuf.clone(), pool.clone(), kernels,
-                                     classes, scaled, active, bd, ha, wa),
-                        frame=calls[0] - 1, live=(live, live_s))
-        return real(Fbuf, pool, kernels, classes, scaled, active, bd, ha, wa)
+            best.update(key=k, args=(Fbuf.clone(), Rbuf.clone(),
+                                     pool.clone(), kernels, flats, classes,
+                                     mask, active, bd, ha, wa),
+                        frame=calls[0] - 1, live=tuple(live))
+        return real(Fbuf, Rbuf, pool, kernels, flats, classes, mask, active,
+                    bd, ha, wa)
 
     fused.mc_frame = spy
     try:
@@ -1078,27 +1144,78 @@ def capture_mc(name, n_frames, key):
     return best
 
 
-def mc_timings(card, MC):
-    """Phase 5: the MC kernel against its twins (CUDA events) on nc03's
-    busiest inter frame, hd01's first inter frame and, the scaled class
-    alone, cp01's busiest scaled frame, as the frame step feeds it; each
-    result held against the twins'.  Returns {label: (ms, plain_ms,
-    bound, by)}."""
-    rows = {}
-    for label, name, n, key, scaled_only in (
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def host_ms(fn, setup, reps=20) -> float:
+    """Median milliseconds of the host's own time in fn(setup()): the
+    call enqueues its work and returns."""
+    times = []
+    for _ in range(reps):
+        x = setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_ms(fn, setup, reps: int, kernel: str):
+    """Median device milliseconds of the kernel whose name holds `kernel`
+    in fn(setup()), from torch.profiler's CUDA trace over reps runs (the
+    kernel alone, without the host's enqueue), or None when the trace
+    holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    xs = [setup() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            fn(x)
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if kernel in e.name and e.device_type == DeviceType.CUDA]
+    return statistics.median(times) / 1e3 if times else None
+
+
+def mc_timings(card, MC, _build):
+    """Phase 5: the MC kernel against its twin (CUDA events) on nc03's
+    busiest inter frame and hd01's first inter frame, mask phase
+    included, on cp01's busiest scaled frame (the scaled class alone), and
+    on nc03's busiest frame's mask alone, as the frame step feeds it; each
+    result held against the twin's.  Beside each: the chain floor (the
+    same launch with no work, vp9_mc_chain_floor), the wrapper call's
+    host time, and the torch mask add that the last phase replaced
+    (`MC.mask_add`, CUDA events and host clock); and the kernel built
+    with each register cap of MC_CAP_BUILDS, held against the twin and
+    timed the same way.  Prints ptxas's registers, spills and shared
+    memory of each build.  Returns {label: (ms, plain_ms, bound, by)}."""
+    from cuda_vp9_torch.tools import kernel_cases as KC
+    rows, captured = {}, {}
+    for label, name, n, key, part in (
             ("nc03 busiest", "nc03_640x360_occl", 12,
-             lambda i, u, s: u + s if u + s else None, False),
+             lambda i, u, s: u + s if u + s else None, "all"),
             ("hd01 first inter", "hd01_1920x1080_t4", 4,
-             lambda i, u, s: -i if u + s else None, False),
+             lambda i, u, s: -i if u + s else None, "all"),
             ("cp01 busiest scaled", "cp01_352x288_compound", 8,
-             lambda i, u, s: s if s else None, True)):
-        got = capture_mc(name, n, key)
-        F0, pool, kern, classes, scaled, active, bd, ha, wa = got["args"]
-        if scaled_only:
+             lambda i, u, s: s if s else None, "scaled"),
+            ("nc03 busiest mask", "nc03_640x360_occl", 12,
+             lambda i, u, s: u + s if u + s else None, "mask")):
+        if name not in captured:
+            captured[name] = capture_mc(name, n, key)
+        got = captured[name]
+        F0, R, pool, kern, flats, classes, mask, active, bd, ha, wa = \
+            got["args"]
+        if part == "scaled":
+            classes, mask = [c for c in classes if c.w == 0], None
+        elif part == "mask":
             classes = []
+        args = (R, pool, kern, flats, classes, mask, active, bd, ha, wa)
 
         def run(F, fn=MC.mc_frame):
-            fn(F, pool, kern, classes, scaled, active, bd, ha, wa)
+            fn(F, *args)
 
         Fk, Fp = F0.clone(), F0.clone()
         run(Fk)
@@ -1108,25 +1225,66 @@ def mc_timings(card, MC):
             raise SystemExit(f"{label}: mc kernel != plain")
         ms = cuda_ms(run, 20, F0.clone)
         plain_ms = cuda_ms(lambda F: run(F, MC.mc_frame_plain), 3, F0.clone)
-        # the host's share: the wrapper call's own time, which enqueues the
-        # grids and returns
-        host = []
-        for _ in range(20):
-            F = F0.clone()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(F)
-            host.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        b, by = bound(*mc_work(pool, kern, classes, scaled, ha, wa))
+        floor_ms = cuda_ms(lambda F: run(F, MC.chain_floor), 20, F0.clone)
+        host = host_ms(run, F0.clone)
+        dev_ms = device_ms(run, F0.clone, 20, "mc_pass_kernel")
+        dev_floor = device_ms(lambda F: run(F, MC.chain_floor), F0.clone, 20,
+                              "mc_pass_kernel")
+        phases = KC.mc_phases(classes, mask)[0]
+        b, by = bound(*mc_work(pool, kern, flats, classes, mask, ha, wa))
+        torch_mask = ""
+        if mask is not None:
+            mp = MC.mask_words(flats, mask)[0].to(torch.int32)
+
+            def torch_add(F):
+                MC.mask_add(F[:-1].view(3, ha, wa), R[:-1].view(3, ha, wa),
+                            mp, mask.mi_rows, mask.mi_cols, bd,
+                            (mask.ssx, mask.ssy))
+
+            mask_ms = cuda_ms(torch_add, 20, F0.clone)
+            mask_host = host_ms(torch_add, F0.clone)
+            torch_mask = (f"; the torch mask add it replaced {mask_ms:.4f} "
+                          f"ms (host {mask_host:.4f} ms)")
+        caps = []
+        for d in MC_CAP_BUILDS:
+            with mc_build(_build, d):
+                Fv = F0.clone()
+                run(Fv)
+                if not torch.equal(Fv[:-1], Fp[:-1]):
+                    raise SystemExit(f"{label}: mc kernel with {d[0]} != "
+                                     "plain")
+                v_ms = cuda_ms(run, 20, F0.clone)
+                v_dev = device_ms(run, F0.clone, 20, "mc_pass_kernel")
+                caps.append(f"{d[0].split('=')[1]}: {v_ms:.4f} ms, device "
+                            f"{fmt_ms(v_dev)}")
         rows[label] = (ms, plain_ms, b, by)
         print(f"{label} (frame {got['frame']}, live tiles {got['live'][0]} "
-              f"unscaled, {got['live'][1] if scaled is not None else 0} "
-              f"scaled{', the scaled class alone' if scaled_only else ''}): "
-              f"mc kernel {ms:.4f} ms (the wrapper call's host time "
-              f"{statistics.median(host):.4f} ms), plain {plain_ms:.3f} ms, "
-              f"bound {b:.5f} ms ({by}); equal to the plain result [{card}]")
+              f"unscaled, {got['live'][1]} scaled; {part}: {phases} phases "
+              f"in one launch): mc kernel {ms:.4f} ms (the wrapper call's "
+              f"host time {host:.4f} ms; the launch alone on the device "
+              f"{fmt_ms(dev_ms)}), chain floor {floor_ms:.4f} ms (on the "
+              f"device {fmt_ms(dev_floor)}), "
+              f"plain {plain_ms:.3f} ms, bound {b:.5f} ms ({by})"
+              f"{torch_mask}; equal to the plain result [{card}]")
+        print(f"{label}: mc kernel by register cap, blocks an SM at least "
+              f"(the source's own 4: {ms:.4f} ms, device {fmt_ms(dev_ms)}): "
+              + "; ".join(caps) + f"; each equal to the plain result [{card}]")
+    for tag in ["mc"] + [_build._tag("mc", d) for d in MC_CAP_BUILDS]:
+        for fn, line in ptxas_usage(_build.build_log.get(tag, "")):
+            print(f"ptxas {tag} {fn}: {line}")
     return rows
+
+
+@contextmanager
+def mc_build(_build, defines):
+    """MC's wrapper calls the library of mc.cu built with `defines`
+    while inside."""
+    own = _build.load("mc")
+    _build._libs["mc"] = _build.load("mc", defines)
+    try:
+        yield
+    finally:
+        _build._libs["mc"] = own
 
 
 def main() -> int:
@@ -1155,8 +1313,9 @@ def main() -> int:
 
     # 1. build the sources, one nvcc each, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        list(ex.map(_build.build, KERNELS))
+    jobs = [(k, ()) for k in KERNELS] + [("mc", d) for d in MC_CAP_BUILDS]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda j: _build.build(*j), jobs))
     LF._lib()
     L4._lib()
     TP._lib()
@@ -1283,15 +1442,15 @@ def main() -> int:
     lf_by_stream = {}
     for name, n, filtered in STREAMS:
         before = [(k.launches, getattr(k, "host_calls", 0)) for k in counted]
-        extra = (MC.scaled_launches, IN.chunks, RS.buckets)
+        extra = (MC.scaled_calls, MC.phases, IN.chunks, RS.buckets)
         md5s, recon, dt = decode(name, n)
         (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _), \
             (mc_here, mc_calls) = [
                 (k.launches - b[0], getattr(k, "host_calls", 0) - b[1])
                 for k, b in zip(counted, before)]
-        mcs_here, chunks_here, buckets_here = (
-            a - b for a, b in zip((MC.scaled_launches, IN.chunks, RS.buckets),
-                                  extra))
+        mcs_here, phases_here, chunks_here, buckets_here = (
+            a - b for a, b in zip((MC.scaled_calls, MC.phases, IN.chunks,
+                                   RS.buckets), extra))
         lf_by_stream[name] = lf_here
         golden = golden_md5(name)[:n]
         bad = [i for i, (a, b) in enumerate(zip(md5s, golden)) if a != b]
@@ -1301,8 +1460,9 @@ def main() -> int:
               f"lf_frame launches {lf_here}, lf_chroma_422 launches "
               f"{l4_here}, intra launches {in_here} ({chunks_here} chunks) in "
               f"{calls_here} host calls, residual launches {rs_here} "
-              f"({buckets_here} buckets), mc grids {mc_here} ({mcs_here} "
-              f"scaled) in {mc_calls} host calls, cold {dt:.2f} s")
+              f"({buckets_here} buckets), mc launches {mc_here} "
+              f"({phases_here} phases; {mcs_here} with the scaled class) in "
+              f"{mc_calls} host calls, cold {dt:.2f} s")
         if len(md5s) != n or bad or recon.frames_on_device != n \
                 or recon.frames_on_host:
             raise SystemExit(f"{name}: decode check failed")
@@ -1316,25 +1476,27 @@ def main() -> int:
             raise SystemExit(f"{name}: the intra or residual kernel never "
                              "ran, ran a plain twin, or made more than one "
                              "launch (intra: host call) a frame")
-        if not mc_here or not 0 < mc_calls <= n or MC.plain_calls \
+        if not 0 < mc_here == mc_calls <= n or MC.plain_calls \
                 or (name.startswith("cp01") and not mcs_here):
             raise SystemExit(f"{name}: the MC kernel (or on cp01 its scaled "
-                             "class) never ran, ran a plain twin, or took "
-                             "more than one host call a frame")
+                             "class) never ran, ran a plain twin, or made "
+                             "more than one launch (host call) a frame")
     lf_launches, lf_plain = LF.launches, LF.plain_calls
     l4_launches, l4_plain = L4.launches, L4.plain_calls
     in_launches, in_calls = IN.launches, IN.host_calls
     rs_launches = RS.launches
-    mc_launches, mcs_launches = (MC.launches - MC.scaled_launches,
-                                 MC.scaled_launches)
+    mc_launches, mcs_launches, mask_launches = (MC.launches, MC.scaled_calls,
+                                                MC.mask_calls)
     print(f"decode path: loop-filter kernel launches {lf_launches}, plain "
           f"calls {lf_plain}; 4:2:2 chroma kernel launches {l4_launches}, "
           f"plain calls {l4_plain}; intra kernel launches {in_launches} "
           f"({IN.chunks} chunks) in {in_calls} host calls, plain calls "
           f"{IN.plain_calls}; residual kernel launches {rs_launches} "
           f"({RS.buckets} buckets), plain calls {RS.plain_calls}; "
-          f"mc kernel grids {mc_launches} unscaled and {mcs_launches} scaled "
-          f"in {MC.host_calls} host calls, plain calls {MC.plain_calls}; "
+          f"mc kernel launches {mc_launches} ({MC.phases} phases; "
+          f"{mcs_launches} with the scaled class, {mask_launches} with the "
+          f"mask) in {MC.host_calls} host calls, plain calls "
+          f"{MC.plain_calls}; "
           f"tile-probe launches {TP.launches}")
     if lf_launches == 0 or lf_plain or l4_launches == 0 or l4_plain:
         raise SystemExit("the decode path did not run the loop-filter "
@@ -1373,12 +1535,13 @@ def main() -> int:
           f"{dt:.3f} s = {n_frames / dt:.2f} fps aggregate "
           f"({dt / bd.rounds:.3f} s a round; single-stream nc03 "
           f"{single_fps:.2f} fps in this run) [{card}]")
-    print(f"warm decodes: mc kernel grids {MC.launches} ({MC.scaled_launches} "
-          f"scaled) in {MC.host_calls} host calls, plain calls "
+    print(f"warm decodes: mc kernel launches {MC.launches} ({MC.phases} "
+          f"phases; {MC.scaled_calls} with the scaled class) in "
+          f"{MC.host_calls} host calls, plain calls "
           f"{[k.plain_calls for k in counted]}")
     if any(k.plain_calls for k in counted) or not MC.launches:
         raise SystemExit("warm decodes: a plain twin ran, or MC did not")
-    mc_rows = mc_timings(card, MC)
+    mc_rows = mc_timings(card, MC, _build)
     in_row, rs_row = keyframe_timings(dev, card, IN, RS, fused, _build)
     lf_rows = {}
     for bd in (8, 10):
@@ -1552,6 +1715,15 @@ def main() -> int:
          "plain_ms": mc_rows["cp01 busiest scaled"][1],
          "bound_ms": mc_rows["cp01 busiest scaled"][2],
          "bound_by": mc_rows["cp01 busiest scaled"][3],
+         "library_ms": None},
+        {"name": "mc_mask_add", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/mc.cu",
+         "replaces": "cuda_vp9_tpu/runtime/fused.py:620",
+         "launches": mask_launches, "max_abs_err": mc_err,
+         "ms": mc_rows["nc03 busiest mask"][0],
+         "plain_ms": mc_rows["nc03 busiest mask"][1],
+         "bound_ms": mc_rows["nc03 busiest mask"][2],
+         "bound_by": mc_rows["nc03 busiest mask"][3],
          "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

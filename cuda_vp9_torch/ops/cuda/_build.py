@@ -22,9 +22,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 OUT = _PKG.parent / "build" / "cuda_vp9_torch"
 
-build_seconds = {}      # name -> seconds the last build of this process took
-build_log = {}          # name -> nvcc's output of that build (ptxas -v)
-_libs = {}
+build_seconds = {}      # tag -> seconds the last build of this process took
+build_log = {}          # tag -> nvcc's output of that build (ptxas -v)
+_libs = {}              # tag -> loaded library
 
 
 def _nvcc() -> str:
@@ -36,10 +36,17 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into lib<name>.so if missing or stale."""
+def _tag(name: str, defines: tuple) -> str:
+    return "-".join((name,) + tuple(d.replace("=", "") for d in defines))
+
+
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile csrc/<name>.cu into lib<name>.so if missing or stale; with
+    defines (("MACRO=value", ...), passed to nvcc as -D), into a library
+    of its own, lib<name>-<MACROvalue>...so, logged under that tag."""
     src = CSRC / f"{name}.cu"
-    so = OUT / f"lib{name}.so"
+    tag = _tag(name, defines)
+    so = OUT / f"lib{tag}.so"
     deps = [p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")]
     if so.exists() and all(so.stat().st_mtime > p.stat().st_mtime
                            for p in deps):
@@ -52,31 +59,42 @@ def build(name: str) -> Path:
     proc = subprocess.run(
         [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         "-o", str(tmp), str(src)], capture_output=True, text=True)
-    build_log[name] = proc.stdout + proc.stderr
+         *(f"-D{d}" for d in defines), "-o", str(tmp), str(src)],
+        capture_output=True, text=True)
+    build_log[tag] = proc.stdout + proc.stderr
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{build_log[name]}")
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{build_log[tag]}")
     os.replace(tmp, so)
-    build_seconds[name] = time.perf_counter() - t0
+    build_seconds[tag] = time.perf_counter() - t0
     return so
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built with `defines`),
+    built first if needed."""
+    tag = _tag(name, defines)
+    lib = _libs.get(tag)
     if lib is None:
-        lib = _libs[name] = ctypes.CDLL(str(build(name)))
+        lib = _libs[tag] = ctypes.CDLL(str(build(name, defines)))
     return lib
 
 
 def call(fn, device, *args) -> int:
     """fn(*args, stream, &launched) on `device`'s current stream, for the
     C entry points that report their launches; returns the launch count,
-    and raises on a CUDA error."""
+    and raises on a CUDA error.  On the current device it reads the raw
+    stream handle and switches nothing (the host's own time per call
+    counts: a frame makes a few such calls)."""
     n = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream,
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx),
                  ctypes.byref(n))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx),
+                     ctypes.byref(n))
     if err:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
     return n.value

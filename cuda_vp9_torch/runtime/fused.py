@@ -23,11 +23,11 @@ place to keep one copy of the pool on the device):
   (misc[5:13]) and ring row misc[13].
 
 On a CUDA pool the residual transforms (`ops/cuda/residual.py`, one
-launch per frame for every bucket), MC (`ops/cuda/mc.py`, one host call
-per frame that enqueues a grid per class and landing phase), the intra
-wavefront (`ops/cuda/intra.py`, one persistent launch per frame that
-runs the chunks as a chain) and the loop filter are hand-written
-kernels; the mask add, the refresh and the ring are torch ops.  On a
+launch per frame for every bucket), MC with the inter residual add
+(`ops/cuda/mc.py`, one persistent launch per frame whose last phase is
+the mask add), the intra wavefront (`ops/cuda/intra.py`, one persistent
+launch per frame that runs the chunks as a chain) and the loop filter
+are hand-written kernels; the refresh and the ring are torch ops.  On a
 CPU pool each kernel's plain torch twin runs instead.
 
 Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
@@ -67,7 +67,7 @@ from .. import models as M
 from ..ops.cuda.intra import intra_pass, intra_pass_batched
 from ..ops.cuda.lf422 import lf_chroma_422
 from ..ops.cuda.loopfilter import lf_frame, lf_frames
-from ..ops.cuda.mc import grid_bounds, mc_frame
+from ..ops.cuda.mc import Mask, mc_class, mc_frame
 from ..ops.cuda.residual import Bucket, residual_frame
 from . import pack
 
@@ -107,23 +107,24 @@ def frame_buffer(ha: int, wa: int, device) -> torch.Tensor:
 # ----------------------------------------------------------------- inter
 
 
-def mask_add(F, R, mp, mi_rows: int, mi_cols: int, bd: int, ss=(1, 1)):
-    """F = clip(F + R) over the non-skip inter mi cells (fused.py:620-633).
-    F, R [..., 3, ha, wa]; mp [..., mi_rows, cdiv(mi_cols, 16)] int32, 16
-    cells per (sign-extended) word; a chroma cell is (8 >> ss_y) x
-    (8 >> ss_x) pixels.  Leading dimensions are frames (the batched
-    step's streams)."""
-    bits = torch.arange(16, device=F.device, dtype=I32)
-    m = ((mp[..., None] >> bits) & 1).reshape(
-        *mp.shape[:-2], mi_rows, -1)[..., :mi_cols] != 0
-    maxv = (1 << bd) - 1
-    for planes, gy, gx in ((slice(0, 1), 8, 8),
-                           (slice(1, 3), 8 >> ss[1], 8 >> ss[0])):
-        cm = m.repeat_interleave(gy, -2).repeat_interleave(gx, -1)
-        h, w = cm.shape[-2:]
-        f = F[..., planes, :h, :w]
-        f.copy_(torch.where(cm[..., None, :, :],
-                            (f + R[..., planes, :h, :w]).clamp(0, maxv), f))
+def inter_args(segs, flats, miscs, mi_rows: int, mi_cols: int, ss=(1, 1)):
+    """(classes, mask) of the mc_frame call of a frame (or of a round's
+    frames) from the host flats and their misc rows, in the JAX step's
+    order (fused.py:603-633): the `McClass` of each tile class with
+    chunks in some stream (mc4 .. mc32, then mcs), and the `Mask` of
+    mi_mask, or None when no flat's mask has a bit set."""
+    def counts(slot):
+        return [int(m[slot]) for m in miscs]
+
+    classes = [mc_class(segs, w, counts(n_slot), counts(r0_slot), r0_slot)
+               for w, n_slot, r0_slot in MC_CLASSES if max(counts(n_slot))]
+    if "mcs" in segs and max(counts(14)):
+        classes.append(mc_class(segs, 0, counts(14), counts(15), 15))
+    off, shape = segs["mi_mask"]
+    size = int(np.prod(shape))
+    mask = Mask(off, mi_rows, mi_cols, *ss) if any(
+        f[off:off + size].any() for f in flats) else None
+    return classes, mask
 
 
 # ----------------------------------------------------------------- residual
@@ -251,24 +252,12 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
                            segs, ha, wa, bd, lossless)
 
         with record_function("vp9.inter"):
-            # every class with chunks, then mcs: one kernel host call,
-            # as a batch of one stream ([1, n, ...] records, n_ref0 a
-            # device view of misc)
-            misc16 = seg("misc", dtype=torch.int16)
-
-            def mc_class(name, n, r0_slot):
-                return (seg(name, n, torch.int16)[None],
-                        seg(name + "h", n, torch.int16)[None], n,
-                        misc16[r0_slot:r0_slot + 1],
-                        grid_bounds([n], [int(misc[r0_slot])]))
-
-            classes = [(w, *mc_class(f"mc{w}", n, r0_slot))
-                       for w, n_slot, r0_slot in MC_CLASSES
-                       if (n := int(misc[n_slot]))]
-            n = int(misc[14]) if "mcs" in segs else 0
-            scaled = mc_class("mcs", n, 15) if n else None
-            mc_frame(Fbuf, pool, kernels, classes, scaled, None, bd, ha, wa)
-            mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd, ss)
+            # every class with chunks, then mcs, then the mask add: one
+            # kernel launch over the flat as a batch of one stream
+            classes, mask = inter_args(segs, [flat], [misc], mi_rows,
+                                       mi_cols, ss)
+            mc_frame(Fbuf, Rbuf, pool, kernels, flat_d[None], classes, mask,
+                     None, bd, ha, wa)
 
         with record_function("vp9.intra"):
             n_intra = int(misc[3])
@@ -335,9 +324,9 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
     element), frame k at planes 3k .. 3k + 2, and every stage runs once
     for all of them: the coefficient buckets (one call for the round),
     each MC class (landed in two steps, so that every compound average
-    sees its first prediction), the mask add, the intra chunks (one call
-    for the round: chunk index i of every stream is one step of the
-    chain, each record with its own stream's block size), one
+    sees its first prediction) and the mask add in one call, the intra
+    chunks (one call for the round: chunk index i of every stream is one
+    step of the chain, each record with its own stream's block size), one
     `lf_frames` launch, one indexed pool refresh and one indexed ring
     write.  A stream whose count in a bucket, class or chunk
     list is below the round's most runs the rest as padding records (the
@@ -383,7 +372,6 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
         Fbuf = torch.zeros(3 * A * ha * wa + 1, dtype=I32, device=dev)
         Rbuf = torch.zeros_like(Fbuf)
         F = Fbuf[:-1].view(A, 3, ha, wa)
-        R = Rbuf[:-1].view(A, 3, ha, wa)
         pool_s = pool.view(n_streams * 8, 3, ha, wa)
         misc16 = seg("misc", dtype=torch.int16)
 
@@ -393,21 +381,13 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
             residual_stage(Rbuf, flat_d, most, segs, ha, wa, bd, lossless)
 
         with record_function("vp9.inter"):
-            # every class with chunks in one kernel host call; chunks
-            # before each stream's own n_ref0 (read on the device) are
-            # first predictions, the others compound second ones
-            classes = []
-            for w, n_slot, r0_slot in MC_CLASSES:
-                n = most(n_slot)
-                if n:
-                    classes.append((w, seg(f"mc{w}", n, torch.int16),
-                                    seg(f"mc{w}h", n, torch.int16), n,
-                                    misc16[:, r0_slot], grid_bounds(
-                                        [int(m[n_slot]) for m in miscs],
-                                        [int(m[r0_slot]) for m in miscs])))
-            mc_frame(Fbuf, pool_s, kernels, classes, None,
+            # every class with chunks, then the mask add, in one kernel
+            # launch; chunks before each stream's own n_ref0 (read on the
+            # device) are first predictions, the others compound second
+            # ones
+            classes, mask = inter_args(segs, flats, miscs, mi_rows, mi_cols)
+            mc_frame(Fbuf, Rbuf, pool_s, kernels, flat_d, classes, mask,
                      up[A * nflat:A * nflat + A], bd, ha, wa)
-            mask_add(F, R, seg("mi_mask"), mi_rows, mi_cols, bd)
 
         with record_function("vp9.intra"):
             n_intra = most(3)

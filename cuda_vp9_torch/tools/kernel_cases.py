@@ -22,28 +22,33 @@ moderate or extreme (the full int16 range at 8 bits; up to the bd +
 8-bit WRAPLOW range above, and raw random high and low words), and for
 the coo buckets (index, value) pairs with (0, 0) padding pairs.
 
-MC (`mc_case`, `mc_args`, `mc_grids`, `MC_CASES`): the flats of 1 to 4 streams
-holding, per stream, the four unscaled tile classes and (one stream) the
-scaled class mcs as the packer lays them out (records, chunk headers,
-the chunk counts and first compound chunks in misc), over a random pool
-whose canvas may exceed the frame's and whose slots have random crops
-below it; destinations on the tile grid of planes 0..2 of a 4:2:0,
-4:4:4 or 4:2:2 layout, distinct within a landing phase; sources inside,
-near and past the crop on every side (negative sr and sc), every filter
-and phase, q4 steps 8..32 for mcs; padded records (dy + 1 == 0, other
-fields random) inside chunks, an all-zero chunk, compound chunks past
-n_ref0 that average into first predictions, random values in the header
-fields the port does not read; streams with different chunk counts and
-n_ref0, and the active streams a random subset of the pool's.
+MC (`mc_case`, `mc_args`, `mc_phases`, `phase_overlap`, `MC_CASES`): the
+flats of 1 to 4 streams holding, per stream, the four unscaled tile
+classes and (one stream) the scaled class mcs as the packer lays them
+out (records, chunk headers, the chunk counts and first compound chunks
+in misc), and an mi_mask, over a random pool whose canvas may exceed
+the frame's and whose slots have random crops below it; destinations
+on the tile grid of planes 0..2 of a 4:2:0, 4:4:4 or 4:2:2 layout,
+distinct within a landing phase and drawn for each class on its own (so
+two phases may land on the same pixels); sources inside, near and past
+the crop on every side (negative sr and sc), every filter and phase, q4
+steps 8..32 for mcs; padded records (dy + 1 == 0, other fields random)
+inside chunks, an all-zero chunk, compound chunks past n_ref0 that
+average into first predictions, random values in the header fields the
+port does not read; streams with different chunk counts and n_ref0, and
+the active streams a random subset of the pool's; random mask words
+over the full int16 range (bit 15 set in about half, bits past the last
+mi column) and residuals that carry F + R past 0 and past 2^bd - 1.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 
-from ..ops.cuda.mc import grid_bounds
+from ..ops.cuda.mc import HDR_WORDS, REC_WORDS, Mask, mc_class
 from ..ops.cuda.residual import Bucket
 from ..runtime import pack
 
@@ -303,45 +308,106 @@ def mc_seg(flats, segs, name, rows):
 
 
 def mc_args(case, flats, k=None):
-    """(classes, scaled) for ops/cuda/mc.mc_frame: with k, stream k's
-    alone (views of flats[k:k + 1], the scaled class included); with k
-    None, every stream's (n the most chunks), scaled None.  Each
-    stream's n_ref0 is a view of its misc, beside the host bounds.
-    flats: case.flats or that array on a device."""
-    misc = case.misc
-    if k is not None:
-        flats, misc = flats[k:k + 1], misc[k:k + 1]
+    """(classes, mask) for ops/cuda/mc.mc_frame: the `McClass`es with
+    chunks (with k, stream k's alone, the scaled class included, for
+    flats[k:k + 1]; with k None, every stream's, n the most chunks, no
+    scaled class) and the `Mask` of mi_mask.  flats: case.flats or that
+    array on a device; the offsets do not depend on it."""
+    misc = case.misc if k is None else case.misc[k:k + 1]
 
-    def cls(name, ns, rs):
-        n = int(misc[:, ns].max())
-        return (mc_seg(flats, case.segs, name, n),
-                mc_seg(flats, case.segs, name + "h", n), n,
-                mc_seg(flats, case.segs, "misc", 48)[:, rs],
-                grid_bounds([int(x) for x in misc[:, ns]],
-                            [int(x) for x in misc[:, rs]]))
+    def cls(w, ns, rs):
+        return mc_class(case.segs, w, [int(x) for x in misc[:, ns]],
+                        [int(x) for x in misc[:, rs]], rs)
 
-    classes = [(w, *cls(f"mc{w}", ns, rs)) for w, ns, rs in MC_SLOTS
-               if misc[:, ns].max()]
-    scaled = None
+    classes = [cls(w, ns, rs) for w, ns, rs in MC_SLOTS if misc[:, ns].max()]
     if k is not None and "mcs" in case.segs and misc[0, 14]:
-        scaled = cls("mcs", 14, 15)
-    return classes, scaled
+        classes.append(cls(0, 14, 15))
+    off, (rows, _) = case.segs["mi_mask"]
+    return classes, Mask(off, rows, case.mi_cols, *case.ss)
 
 
-def mc_grids(case):
-    """(all, scaled): the grids vp9_mc_pass enqueues for case's classes
-    (mc_frame's of its one stream, or of its streams), and those of the
-    scaled class among them: per class with chunks, one for its firsts
-    and one for its compound chunks, if any."""
-    classes, scaled = mc_args(case, case.flats,
-                              0 if len(case.flats) == 1 else None)
+def mc_phases(classes, mask) -> tuple:
+    """(phases, scaled): the phases vp9_mc_pass runs for these arguments
+    of mc_frame (per class, its firsts if any stream has a first chunk
+    and its seconds if any has a compound one; the mask phase), and
+    whether the scaled class is among them."""
+    n = sum((min(c.hi, c.n) > 0) + (max(min(c.lo, c.n), 0) < c.n)
+            for c in classes)
+    return n + (mask is not None), any(c.w == 0 for c in classes)
 
-    def grids(c):
-        n, (lo, hi) = c[-3], c[-1]
-        return (min(hi, n) > 0) + (lo < n)
 
-    ns = grids(scaled) if scaled is not None else 0
-    return sum(grids(c) for c in classes) + ns, ns
+class Overlap(NamedTuple):
+    """Pixels of the frames [3A, ha, wa] that more than one phase of
+    mc_frame writes, by kind: `cross` by phases of two or more tile
+    classes, `seconds` by a class's compound seconds over its own firsts,
+    `mask` by the mask phase over a pixel some class wrote."""
+    cross: int
+    seconds: int
+    mask: int
+
+
+def phase_overlap(case, flats, classes, mask) -> Overlap:
+    """The Overlap of these mc_frame arguments (live tiles of each
+    class's firsts and seconds, by each stream's own n_ref0, within the
+    frame; the masked cells), host numpy: the cases in which the phases'
+    order decides the result."""
+    A = flats.shape[0]
+    shape = (3 * A, case.ha, case.wa)
+    classes_hit = np.zeros(shape, np.int32)
+    any_mc = np.zeros(shape, bool)
+    own = np.zeros(shape, bool)
+    for c in classes:
+        rw, hw = REC_WORDS[c.w], HDR_WORDS[c.w]
+        by_phase = []
+        for second in (0, 1):
+            m = np.zeros(shape, bool)
+            for k in range(A):
+                r0 = int(flats[k, c.r0])
+                u = flats[k, c.rec:c.rec + c.n * c.ch * rw].reshape(
+                    c.n, c.ch, rw).astype(np.int64)
+                hd = flats[k, c.hdr:c.hdr + c.n * hw].reshape(c.n, hw)
+                for ci in range(c.n):
+                    if (ci >= r0) != second:
+                        continue
+                    for rec in u[ci]:
+                        if c.w:
+                            if rec[1] == 0:
+                                continue
+                            w, plane = c.w, int(hd[ci, 1])
+                            dy, dx = rec[1] - 1, rec[0] & 0x1FFF
+                        else:
+                            if rec[2] == 0:
+                                continue
+                            w, plane = 4, int(rec[0])
+                            dy, dx = rec[2] - 1, rec[1]
+                        if 0 <= plane <= 2:
+                            m[3 * k + plane, max(dy, 0):max(dy + w, 0),
+                              max(dx, 0):max(dx + w, 0)] = True
+            by_phase.append(m)
+        own |= by_phase[0] & by_phase[1]
+        classes_hit += by_phase[0] | by_phase[1]
+        any_mc |= by_phase[0] | by_phase[1]
+    masked = mc_mask_bits(case, flats, mask) if mask is not None \
+        else np.zeros(shape, bool)
+    return Overlap(int((classes_hit > 1).sum()), int(own.sum()),
+                   int((masked & any_mc).sum()))
+
+
+def mc_mask_bits(case, flats, mask):
+    """bool [3A, ha, wa]: the pixels the mask phase adds R to."""
+    A = flats.shape[0]
+    words = -(-mask.mi_cols // 16)
+    mp = flats[:, mask.off:mask.off + mask.mi_rows * words].reshape(
+        A, mask.mi_rows, words).astype(np.int64)
+    cells = ((mp[..., None] >> np.arange(16)) & 1).reshape(
+        A, mask.mi_rows, -1)[:, :, :mask.mi_cols] != 0
+    out = np.zeros((3 * A, case.ha, case.wa), bool)
+    for p in range(3):
+        gy = 8 >> (mask.ssy if p else 0)
+        gx = 8 >> (mask.ssx if p else 0)
+        cm = cells.repeat(gy, 1).repeat(gx, 2)
+        out[p::3, :cm.shape[1], :cm.shape[2]] = cm
+    return out
 
 
 def _tile_grid(rng, w, hp, wp, n):
@@ -391,10 +457,13 @@ def mc_case(rng, bd, ss, ha, wa, pad, n_streams, chunks=None,
     the predictions land in (stream k at planes 3k .. 3k + 2), flats
     int16 [A, nflat] with segs {name: (off, shape)} ("misc", "mc{w}",
     "mc{w}h", "mcs", "mcsh"), active int16 [A] (stream k reads pool
-    slots 8 active[k] + slot), misc int64 [A, 48], and bd, ha, wa.  Per
+    slots 8 active[k] + slot), misc int64 [A, 48], R int32 [3 A, ha, wa]
+    the residuals of the mask add, "mi_mask" [ha / 8, ceil(mi_cols / 16)]
+    in the flats with mi_cols = wa / 8 - 1, and bd, ss, ha, wa.  Per
     stream a random number of tiles a class (so chunk counts and n_ref0
     differ between streams), about a third of them predicted twice
-    (compound)."""
+    (compound).  The mask and R are drawn last, so the other inputs do
+    not depend on them."""
     chunks = chunks or MC_CHUNKS
     pha, pwa = ha + pad[0], wa + pad[1]
     n_pool = n_streams + (n_streams > 1)
@@ -500,6 +569,9 @@ def mc_case(rng, bd, ss, ha, wa, pad, n_streams, chunks=None,
         off += cap * chunks[4] * 16
         layout["mcsh"] = (off, (cap, 4))
         off += cap * 4
+    mi_rows, mi_cols = ha // 8, wa // 8 - 1
+    layout["mi_mask"] = (off, (mi_rows, -(-mi_cols // 16)))
+    off += mi_rows * -(-mi_cols // 16)
     flats = np.zeros((n_streams, off + 40), np.int16)
     for k, st in enumerate(per_stream):
         misc = flats[k, :48]
@@ -515,6 +587,11 @@ def mc_case(rng, bd, ss, ha, wa, pad, n_streams, chunks=None,
                 o = layout[name][0]
                 flats[k, o:o + a.size] = a.reshape(-1)
             misc[14], misc[15] = n, n0
-    return SimpleNamespace(pool=pool, F=F, flats=flats, segs=layout,
+    o, shape = layout["mi_mask"]
+    flats[:, o:o + shape[0] * shape[1]] = rng.integers(
+        -32768, 32768, (n_streams, shape[0] * shape[1]))
+    R = rng.integers(-(1 << bd), 1 << bd, F.shape).astype(np.int32)
+    return SimpleNamespace(pool=pool, F=F, R=R, flats=flats, segs=layout,
                            active=active, misc=flats[:, :48].astype(np.int64),
-                           bd=bd, ha=ha, wa=wa)
+                           bd=bd, ss=tuple(ss), ha=ha, wa=wa,
+                           mi_cols=mi_cols)

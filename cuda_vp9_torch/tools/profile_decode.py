@@ -3,6 +3,7 @@
 Usage:
   python -m cuda_vp9_torch.tools.profile_decode in.ivf [--frames N]
          [--device cuda] [--profile-frames K] [--streams S]
+         [--time-calls NAME[,NAME...]] [--reps R]
 
 Decodes the stream once to warm up (kernel build, allocator, cached
 steps), then:
@@ -13,16 +14,25 @@ steps), then:
     frame rate of this pass and each stage's milliseconds and share, and
     the kernels' counters over the pass: the launches of the loop filter
     (lf_frame, lf_chroma_422), of the residual kernel (with the buckets
-    they ran) and of the intra kernel (with the chunks they ran), the
-    grids of the MC kernel (and of its scaled class among them), with the
-    host calls of intra and MC, and the calls of each plain twin (0 on a
-    CUDA device);
+    they ran), of the intra kernel (with the chunks they ran) and of the
+    MC kernel (with the phases they ran, and the launches that ran its
+    scaled class and its mask phase), with the host calls of intra and
+    MC, and the calls of each plain twin (0 on a CUDA device);
   * with --profile-frames K, decodes the first K frames under
     torch.profiler and prints the kernel launches, the device time of
     all kernels and copies, the device's busy share (that time over the
     wall time of the profiled pass, which the profiler itself slows),
     and the kernels with the most device time.  Keep K small: reading
-    back a profile costs seconds per hundred thousand launches.
+    back a profile costs seconds per hundred thousand launches;
+  * with --time-calls, decodes it once more with each named function of
+    runtime/fused.py that the step calls (mc_frame, residual_stage, ...)
+    wrapped: each call, before it runs for the decode, is run R more
+    times on copies of its in-place argument (the first) made outside
+    the timed window, and timed with CUDA events (the median) and with
+    the host clock around the call (the median; the call enqueues its
+    work and returns, so that is the host's own time).  Prints one line
+    per call and each name's sums over the pass.  A name the step does
+    not call is never timed.  On the CPU only the host clock is read.
 
 With --streams S > 1 every pass decodes S copies of the stream in
 lockstep through BatchedTorchDecoder (runtime/multistream.py), whose
@@ -32,6 +42,7 @@ batched step has the same spans; rates are aggregate over the copies.
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 import time
 from collections import defaultdict
@@ -142,6 +153,56 @@ def kernel_profile(path, device, k, streams=1):
               f"{e.key[:80]}")
 
 
+def _timed(fn, args, reps: int, cuda: bool):
+    """(device ms or None, host ms): medians of fn on copies of args[0]."""
+    dev, host = [], []
+    for _ in range(reps):
+        a = (args[0].clone(),) + tuple(args[1:])
+        if cuda:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        fn(*a)
+        host.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            e1.record()
+            torch.cuda.synchronize()
+            dev.append(e0.elapsed_time(e1))
+    return (statistics.median(dev) if dev else None,
+            statistics.median(host))
+
+
+def call_times(path, device, limit, names, reps, streams=1):
+    """Decode with the functions of runtime/fused.py in `names` timed
+    call by call; returns the rows (name, call index, device ms or None,
+    host ms)."""
+    cuda = torch.device(device).type == "cuda"
+    rows, seen = [], defaultdict(int)
+    real = {n: getattr(fused, n) for n in names if hasattr(fused, n)}
+
+    def spy(name):
+        fn = real[name]
+
+        def call(*args):
+            ms, host = _timed(fn, args, reps, cuda)
+            rows.append((name, seen[name], ms, host))
+            seen[name] += 1
+            return fn(*args)
+
+        return call
+
+    for name in real:
+        setattr(fused, name, spy(name))
+    try:
+        decode(path, device, limit, streams)
+    finally:
+        for name, fn in real.items():
+            setattr(fused, name, fn)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="profile_decode",
                                  description=__doc__.split("\n")[0])
@@ -153,6 +214,11 @@ def main(argv=None):
                     help="also profile the first K frames' kernels (CUDA)")
     ap.add_argument("--streams", type=int, default=1, metavar="S",
                     help="decode S copies in lockstep (BatchedTorchDecoder)")
+    ap.add_argument("--time-calls", default="", metavar="NAMES",
+                    help="time each call of these runtime/fused.py "
+                    "functions (comma-separated)")
+    ap.add_argument("--reps", type=int, default=20,
+                    help="runs of each timed call (--time-calls)")
     args = ap.parse_args(argv)
 
     decode(args.input, args.device, args.frames, args.streams)
@@ -169,7 +235,8 @@ def main(argv=None):
           "  (parse, pack, read-back)")
     print(f"  kernel launches: lf_frame {LF.launches}, lf_chroma_422 "
           f"{L4.launches}, residual {RS.launches} ({RS.buckets} buckets), "
-          f"mc {MC.launches} grids ({MC.scaled_launches} scaled) in "
+          f"mc {MC.launches} ({MC.phases} phases; {MC.scaled_calls} with "
+          f"the scaled class, {MC.mask_calls} with the mask) in "
           f"{MC.host_calls} host calls, intra {IN.launches} ({IN.chunks} "
           f"chunks) in {IN.host_calls} host calls; plain "
           "calls: "
@@ -178,7 +245,23 @@ def main(argv=None):
     if args.profile_frames:
         kernel_profile(args.input, args.device, args.profile_frames,
                        args.streams)
+    if args.time_calls:
+        rows = call_times(args.input, args.device, args.frames,
+                          args.time_calls.split(","), args.reps, args.streams)
+        for name, i, ms, host in rows:
+            print(f"  {name} call {i}: device window {fmt_ms(ms)}, host "
+                  f"{host:.4f} ms")
+        for name in dict.fromkeys(r[0] for r in rows):
+            ms = [r[2] for r in rows if r[0] == name]
+            dev = None if None in ms else sum(ms)
+            print(f"  {name}: {len(ms)} calls, device windows summed "
+                  f"{fmt_ms(dev)}, host summed "
+                  f"{sum(r[3] for r in rows if r[0] == name):.4f} ms")
     return 0
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 if __name__ == "__main__":
