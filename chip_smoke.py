@@ -50,6 +50,9 @@ Phases, each of which exits non-zero on failure:
          sources past the crop, compound chunks, padded records, pixels
          that two phases write (some case must have them); one host call
          and one launch a call, with the phases its table lists;
+       - the page expansion (K5's, csrc/pages.cu) against
+         expand_pages_plain and the dense flats on a round of 4 random
+         flats (compacted, dense, all zero) of 2,231 pages, one launch;
   3. run the frame step once at one 64x64 superblock (fused.entry);
   4. the main paths, each with the kernel counts set to 0 just before it
      and read just after:
@@ -67,7 +70,8 @@ Phases, each of which exits non-zero on failure:
          kernel on every stream (each has inter frames) and its scaled
          class on cp01, the intra, the residual and the MC kernels with
          at most one launch per frame each (intra and MC: one per host
-         call), and no plain version ever;
+         call), the page expansion once per frame, and no plain version
+         ever; each stream's flats sent dense (dense_frames) are printed;
        - the tile probe through its entry point (tools/tile_probe.py),
          checked against the probe's NumPy reference;
        - the multi-stream decoders (runtime/multistream.py), each run on
@@ -82,8 +86,9 @@ Phases, each of which exits non-zero on failure:
          filter must have launched once per round with a level, as the
          port's parser reads the headers, the intra and the residual
          kernels with at most one launch per round each and MC with one
-         launch per host call, at most one per round; no plain version
-         ever;
+         launch per host call, at most one per round, and the page
+         expansion once per round (once per frame outside the batch); no
+         plain version ever;
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
@@ -100,7 +105,22 @@ Phases, each of which exits non-zero on failure:
      torch mask add that the last phase replaced, with ptxas's
      registers, spills and shared memory; each timed run of the loop
      filter is also held against the plain result, and lf_frames on 16
-     640x384 frames is timed beside 16 lf_frame calls.
+     640x384 frames is timed beside 16 lf_frame calls;
+  6. the upload (runtime/upload.py): decode nc03, hd01, xl01 and 16 x
+     nc03 with every expansion checked as it runs, the kernel's flats
+     against expand_pages_plain on the same upload and against the
+     dense host flats (the count of flats and of pages that differ must
+     be 0), and print each frame's (each round's) dense and sent bytes
+     and the flats sent dense, with the host time of each call's
+     compaction (its first two calls pin the staging buffers); time the
+     kernel (CUDA events, median of
+     20) against its plain version and against one torch.index_select
+     call on the same pages, beside its bound, on hd01's keyframe, an
+     hd01 inter frame and a 16 x nc03 inter round; print the host spans
+     (vp9.parse, vp9.pack, vp9.compact, vp9.upload, vp9.expand,
+     vp9.readback) of a stage-clocked decode of each warm stream and of
+     16 x nc03; and hd01 and xl01 parsed with 1 and with min(4, cores)
+     tile threads, in turns (1, T, T, 1), with the host's core count.
 
 The last two lines are a JSON record of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without
@@ -110,6 +130,7 @@ the repository beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -147,7 +168,7 @@ NC03_BATCH = ("nc03_640x360_occl",) * 16
 MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
 RESIZE = ("in02_352x288", "sc01_352x288_scaled")
 MSD = ("kf01_64x64", "kf03_odd_98x66")
-KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc")
+KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc", "pages")
 # mc.cu built with other register caps (blocks an SM at least; the
 # source's own is 4), timed beside it in phase 5
 MC_CAP_BUILDS = tuple((f"VP9_MC_MIN_BLOCKS={b}",) for b in (1, 6, 8))
@@ -166,6 +187,15 @@ KEYFRAME = "hd01_1920x1080_t4"        # the timed intra and residual inputs
 MC_BIG_CASES = ((10, (1, 1), 1088, 1920, (0, 0), 1, (1024, 512, 256, 128,
                                                      128), True),
                 (8, (1, 1), 384, 640, (0, 0), 16, None, False))
+# phase 6: the streams whose uploads are checked (with 16 x nc03), the
+# uploads timed ((run, call index): label; the first is the kernels
+# line's row), and the streams parsed with 1 and with several threads
+UPLOAD_STREAMS = (("nc03_640x360_occl", 12), ("hd01_1920x1080_t4", 4),
+                  ("xl01_3840x2176_t4", 6))
+UPLOAD_TIMED = {("hd01", 0): "hd01 keyframe",
+                ("hd01", 1): "hd01 inter frame",
+                ("16 x nc03", 1): "16 x nc03 inter round"}
+THREAD_STREAMS = ("hd01_1920x1080_t4", "xl01_3840x2176_t4")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor float32 rate; the
                                 # table has no int32 rate, so it stands in
@@ -521,14 +551,16 @@ def cuda_ms(fn, reps: int, setup=None, after=None) -> float:
     return statistics.median(times)
 
 
-def decode(name: str, n_frames: int):
-    """Decode one fixture through the codec API on the card; returns
-    (md5s, recon, seconds).  The MD5s read every frame back to the host,
-    so the time covers the device work."""
+def decode(name: str, n_frames: int, threads: int = 1):
+    """Decode one fixture through the codec API on the card, with
+    `threads` parse threads; returns (md5s, recon, seconds).  The MD5s
+    read every frame back to the host, so the time covers the device
+    work."""
     from cuda_vp9_torch.tools.profile_decode import decode as decode_md5
 
     t0 = time.perf_counter()
-    md5s, recon = decode_md5(str(FIXTURES / f"{name}.ivf"), "cuda", n_frames)
+    md5s, recon = decode_md5(str(FIXTURES / f"{name}.ivf"), "cuda", n_frames,
+                             threads=threads)
     return md5s, recon, time.perf_counter() - t0
 
 
@@ -591,7 +623,7 @@ def multi_stream_paths(LF, counted):
         for k in counted:
             k.reset_counts()
         md5s, bd, dt = batched(names, rounds)
-        _, _, _, IN, RS, MC = counted
+        _, _, _, IN, RS, MC, PG = counted
         st = bd.stats()
         unbatched = sum(r["unbatched"] for r in st)
         n_frames = sum(len(m) for m in md5s)
@@ -608,7 +640,10 @@ def multi_stream_paths(LF, counted):
               f"{IN.host_calls} host calls, residual launches {RS.launches} "
               f"({RS.buckets} buckets), mc launches "
               f"{MC.launches} ({MC.phases} phases) in "
-              f"{MC.host_calls} host calls, plain calls "
+              f"{MC.host_calls} host calls, expand_pages launches "
+              f"{PG.launches} (flats sent dense "
+              f"{bd.uploader.dense_frames} of {bd.uploader.frames}), "
+              f"plain calls "
               f"{[k.plain_calls for k in counted]}, cold {dt:.2f} s "
               f"({dt / max(bd.rounds, 1):.3f} s a round)")
         if bad or any(k.plain_calls for k in counted) or any(
@@ -622,6 +657,10 @@ def multi_stream_paths(LF, counted):
             raise SystemExit(f"batched {label}: the intra, residual or MC "
                              "kernel never ran, or made more than one "
                              "launch (intra, MC: host call) a round")
+        if not bd.rounds <= PG.launches <= bd.rounds + unbatched:
+            raise SystemExit(f"batched {label}: the page expansion did not "
+                             "run once a round (and once a frame outside "
+                             "the batch)")
         if names is RESIZE:
             alone = TorchRecon("cuda")
             dec = NativeVp9Decoder(recon_fn=alone)
@@ -654,10 +693,13 @@ def multi_stream_paths(LF, counted):
     for s, f in msd.flush():
         got[s].append(frame_md5(f.visible_planes()))
     print(f"MultiStreamDecoder {' + '.join(MSD)}: stats {msd.stats()}, "
-          f"MD5 equal {[g == golden_md5(n) for g, n in zip(got, MSD)]}")
+          f"MD5 equal {[g == golden_md5(n) for g, n in zip(got, MSD)]}, "
+          f"expand_pages launches {counted[-1].launches}")
     if any(g != golden_md5(n) for g, n in zip(got, MSD)) \
             or any(st["host"] for st in msd.stats()) \
-            or any(k.plain_calls for k in counted):
+            or any(k.plain_calls for k in counted) \
+            or counted[-1].launches != sum(st["device"]
+                                           for st in msd.stats()):
         raise SystemExit("MultiStreamDecoder: decode check failed")
     return lfs_launches
 
@@ -1115,7 +1157,9 @@ def capture_mc(name, n_frames, key):
     """Decode `name` on the card with the frame step's mc_frame watched,
     and return the arguments of the call that key(index, live unscaled
     tiles, live scaled tiles) ranks highest (None: not a candidate), its
-    frame buffer as it was before the call."""
+    frame buffer as it was before the call.  The flats and the active
+    list are views of the upload's buffers, which the next frame reuses,
+    so they are kept as copies."""
     from cuda_vp9_torch.ops.cuda import mc as MC
     from cuda_vp9_torch.runtime import fused
     real, best, calls = fused.mc_frame, {}, [0]
@@ -1129,9 +1173,10 @@ def capture_mc(name, n_frames, key):
         k = key(calls[0], *live)
         calls[0] += 1
         if k is not None and ("key" not in best or k > best["key"]):
-            best.update(key=k, args=(Fbuf.clone(), Rbuf.clone(),
-                                     pool.clone(), kernels, flats, classes,
-                                     mask, active, bd, ha, wa),
+            best.update(key=k, args=(
+                Fbuf.clone(), Rbuf.clone(), pool.clone(), kernels,
+                flats.clone(), classes, mask,
+                None if active is None else active.clone(), bd, ha, wa),
                         frame=calls[0] - 1, live=tuple(live))
         return real(Fbuf, Rbuf, pool, kernels, flats, classes, mask, active,
                     bd, ha, wa)
@@ -1275,6 +1320,176 @@ def mc_timings(card, MC, _build):
     return rows
 
 
+def pages_vs_plain(rng, dev, PG, UP) -> int:
+    """Phase 2: the page expansion against expand_pages_plain and the
+    dense flats, on one upload of 4 random flats of 2,231 pages (an nc03
+    inter flat's count) with 5%, 100%, 0% and 50% of their pages nonzero
+    (the second ships dense) and an int16 aux; one launch.  Returns the
+    max abs error."""
+    n_pages, flats = 2231, []
+    for density in (0.05, 1.0, 0.0, 0.5):
+        f = rng.integers(-2000, 2000, n_pages * PG.PAGE, dtype=np.int16)
+        f.reshape(n_pages, PG.PAGE)[rng.random(n_pages) >= density] = 0
+        flats.append(f)
+    aux = np.arange(-2, 3, dtype=np.int16)
+    up = UP.Uploader(dev)
+    st = up.stage(flats, aux)
+    buf = up.send(st)
+    before = PG.launches
+    got = up.expand(st, buf)
+    launched = PG.launches - before
+    plain = PG.expand_pages_plain(torch.empty_like(got), buf, st.flats,
+                                  n_pages)
+    want = torch.from_numpy(np.stack(flats)).to(dev)
+    err = max(int((got.int() - plain.int()).abs().max()),
+              int((got.int() - want.int()).abs().max()))
+    dense = [f.map < 0 for f in st.flats]
+    aux_ok = torch.equal(up.aux(st, buf).cpu(), torch.from_numpy(aux))
+    print(f"expand_pages kernel vs plain and the dense flats, 4 x {n_pages} "
+          f"pages: max_abs_err {err} (tolerance 0), sent dense {dense}, "
+          f"{st.nbytes} of {4 * n_pages * PG.PAGE_BYTES} bytes sent, "
+          f"aux equal {aux_ok}, {launched} launch")
+    if err or launched != 1 or dense != [False, True, False, False] \
+            or not aux_ok:
+        raise SystemExit("page expansion disagrees")
+    return err
+
+
+def one_gather(buf, flats, n_pages):
+    """(comb, g): every flat's pages below one zero page, and the page map
+    of the whole upload into comb, so that comb.index_select(0, g) is the
+    upload's flats: the one PyTorch call that computes expand_pages."""
+    rows = [torch.zeros(1, 512, dtype=torch.int16, device=buf.device)]
+    maps, base = [], 1
+    for f in flats:
+        rows.append(buf[f.pages:f.pages + f.n * 1024].view(
+            torch.int16).view(f.n, 512))
+        if f.map < 0:
+            g = torch.arange(base, base + n_pages, device=buf.device)
+        else:
+            g = buf[f.map:f.map + 4 * n_pages].view(torch.int32).long()
+            g = torch.where(g > 0, g + base - 1, g)
+        maps.append(g)
+        base += f.n
+    return torch.cat(rows), torch.cat(maps)
+
+
+def upload_phase(dev, card, PG, UP):
+    """Phase 6: the upload of nc03, hd01, xl01 and 16 x nc03 (module
+    docstring).  Exits on a failed check; returns (ms, plain_ms, bound,
+    by, library_ms, max_abs_err) of hd01's keyframe."""
+    from cuda_vp9_torch.tools.profile_decode import stage_clock
+    real_stage, real_expand = UP.Uploader.stage, UP.Uploader.expand
+    label, calls, last = [None], {}, {}
+    kept, bad = {}, [0, 0, 0]
+
+    def stage(self, flats, aux=None):
+        t0 = time.perf_counter()
+        st = real_stage(self, flats, aux)
+        ms = (time.perf_counter() - t0) * 1e3
+        last.update(flats=list(flats))
+        calls.setdefault(label[0], []).append(
+            (sum(f.nbytes for f in flats), st.nbytes,
+             sum(f.map < 0 for f in st.flats), ms))
+        return st
+
+    def expand(self, st, buf):
+        out = real_expand(self, st, buf)
+        A, K = len(st.flats), st.n_pages
+        plain = PG.expand_pages_plain(torch.empty_like(out), buf, st.flats,
+                                      K)
+        want = torch.from_numpy(np.stack(last["flats"])).to(out.device)
+        for other in (plain, want):
+            diff = out.view(A, K, 512) != other.view(A, K, 512)
+            bad[0] += int(diff.any(2).any(1).sum())
+            bad[1] += int(diff.any(2).sum())
+            bad[2] = max(bad[2], int((out.int() - other.int()).abs().max()))
+        key = (label[0], len(calls[label[0]]) - 1)
+        if key in UPLOAD_TIMED:
+            kept[UPLOAD_TIMED[key]] = (buf.clone(), st.flats, K, A)
+        return out
+
+    UP.Uploader.stage, UP.Uploader.expand = stage, expand
+    try:
+        for name, n in UPLOAD_STREAMS:
+            label[0] = name.split("_")[0]
+            md5s, _, _ = decode(name, n)
+            if md5s != golden_md5(name)[:n]:
+                raise SystemExit(f"{name}: MD5 mismatch in phase 6")
+        label[0] = "16 x nc03"
+        md5s, _, _ = batched(NC03_BATCH)
+        if any(m != golden_md5(NC03_BATCH[0]) for m in md5s):
+            raise SystemExit("16 x nc03: MD5 mismatch in phase 6")
+    finally:
+        UP.Uploader.stage, UP.Uploader.expand = real_stage, real_expand
+    n_flats = sum(len(v) for v in calls.values())
+    print(f"upload: {n_flats} uploads of nc03, hd01, xl01 and 16 x nc03 "
+          f"checked as they ran: flats that differ {bad[0]}, pages that "
+          f"differ {bad[1]} (kernel against expand_pages_plain and against "
+          f"the dense flats), max_abs_err {bad[2]} (tolerance 0)")
+    if bad[0] or bad[1] or bad[2]:
+        raise SystemExit("page expansion differs on real flats")
+    for run, rows in calls.items():
+        what = "round" if run.startswith("16") else "frame"
+        # the first call of each staging buffer allocates (pins) it
+        print(f"upload {run}, per {what}, dense KB -> sent KB: "
+              + ", ".join(f"{r[0] / 1024:.0f} -> {r[1] / 1024:.0f}"
+                          for r in rows)
+              + f"; in all {sum(r[0] for r in rows)} -> "
+              f"{sum(r[1] for r in rows)} bytes; flats sent dense "
+              f"(dense_frames) {sum(r[2] for r in rows)}; stage (host) ms "
+              "per call: " + ", ".join(f"{r[3]:.3f}" for r in rows)
+              + f" [{card}]")
+    rows = {}
+    for what, (buf, flats, K, A) in kept.items():
+        out = torch.empty(A * K * 512, dtype=torch.int16, device=dev)
+        comb, g = one_gather(buf, flats, K)
+        ms = cuda_ms(lambda o: PG.expand_pages(o, buf, flats, K), 20,
+                     lambda: out)
+        got = out.clone()
+        plain_ms = cuda_ms(lambda o: PG.expand_pages_plain(o, buf, flats, K),
+                           20, lambda: out)
+        lib_ms = cuda_ms(lambda o: torch.index_select(comb, 0, g,
+                                                      out=o.view(-1, 512)),
+                         20, lambda: out)
+        if not torch.equal(got, out):
+            raise SystemExit(f"{what}: expand_pages != torch.index_select")
+        nbytes = 16 * A + A * K * 1024 + sum(
+            f.n * 1024 + (0 if f.map < 0 else 4 * K) for f in flats)
+        b, by = bound(nbytes, 0)
+        rows[what] = (ms, plain_ms, b, by, lib_ms)
+        print(f"expand_pages {what} ({A} x {K} pages, "
+              f"{sum(f.n for f in flats)} sent): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms, bound "
+              f"{b:.5f} ms ({by}, {nbytes} bytes); equal to index_select "
+              f"[{card}]")
+    spans = ("vp9.parse", "vp9.pack", "vp9.compact", "vp9.upload",
+             "vp9.expand", "vp9.readback")
+    frames = {name: n for name, n, _ in STREAMS}
+    for name, streams in [(w, 1) for w in WARM] + [(NC03_BATCH[0], 16)]:
+        n, wall, spent = stage_clock(str(FIXTURES / f"{name}.ivf"), "cuda",
+                                     frames[name] if streams == 1 else 0,
+                                     streams)
+        rest = wall - sum(spent.values())
+        print(f"stage clock {streams} x {name}: {n} frames {wall * 1e3:.1f} "
+              "ms; " + ", ".join(f"{k} {spent.get(k, 0.0) * 1e3:.1f}"
+                                 for k in spans)
+              + "; " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in
+                                 spent.items() if k not in spans)
+              + f"; outside spans {rest * 1e3:.1f} ms [{card}]")
+    T = min(4, os.cpu_count() or 1)
+    for name in THREAD_STREAMS:
+        got = []
+        for t in (1, T, T, 1):
+            n, wall, spent = stage_clock(str(FIXTURES / f"{name}.ivf"),
+                                         "cuda", frames[name], 1, t)
+            got.append(f"{t}: {n / wall:.2f} fps, vp9.parse "
+                       f"{spent['vp9.parse'] * 1e3:.1f} ms")
+        print(f"parse threads {name} (host cores {os.cpu_count()}; stage "
+              f"clock, in turns): " + "; ".join(got) + f" [{card}]")
+    return rows[next(iter(UPLOAD_TIMED.values()))] + (bad[2],)
+
+
 @contextmanager
 def mc_build(_build, defines):
     """MC's wrapper calls the library of mc.cu built with `defines`
@@ -1298,9 +1513,11 @@ def main() -> int:
     from cuda_vp9_torch.ops.cuda import lf422 as L4
     from cuda_vp9_torch.ops.cuda import loopfilter as LF
     from cuda_vp9_torch.ops.cuda import mc as MC
+    from cuda_vp9_torch.ops.cuda import pages as PG
     from cuda_vp9_torch.ops.cuda import residual as RS
     from cuda_vp9_torch.ops.cuda import tileprobe as TP
     from cuda_vp9_torch.runtime import fused
+    from cuda_vp9_torch.runtime import upload as UP
     from cuda_vp9_torch.tools import kernel_cases as KC
     from cuda_vp9_torch.tools import tile_probe as probe_tool
 
@@ -1322,6 +1539,7 @@ def main() -> int:
     IN._lib()
     RS._lib()
     MC._lib()
+    PG._lib()
     print(f"build {', '.join(k + '.cu' for k in KERNELS)}: "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_build.build_seconds.get(k, 0.0):.2f} s"
@@ -1428,6 +1646,7 @@ def main() -> int:
     in_err = intra_vs_plain(rng, dev, IN, KC)
     rs_err = residual_vs_plain(rng, dev, RS, KC)
     mc_err = mc_vs_plain(dev, MC, KC)
+    pg_err = pages_vs_plain(rng, dev, PG, UP)
 
     # 3. the step at one superblock
     step, sargs = fused.entry(dev)
@@ -1436,7 +1655,7 @@ def main() -> int:
     print("fused.entry: one 64x64 step ran")
 
     # 4a. the decode path through the codec API, counted
-    counted = (LF, L4, TP, IN, RS, MC)
+    counted = (LF, L4, TP, IN, RS, MC, PG)
     for k in counted:
         k.reset_counts()
     lf_by_stream = {}
@@ -1445,7 +1664,7 @@ def main() -> int:
         extra = (MC.scaled_calls, MC.phases, IN.chunks, RS.buckets)
         md5s, recon, dt = decode(name, n)
         (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _), \
-            (mc_here, mc_calls) = [
+            (mc_here, mc_calls), (pg_here, _) = [
                 (k.launches - b[0], getattr(k, "host_calls", 0) - b[1])
                 for k, b in zip(counted, before)]
         mcs_here, phases_here, chunks_here, buckets_here = (
@@ -1462,7 +1681,10 @@ def main() -> int:
               f"{calls_here} host calls, residual launches {rs_here} "
               f"({buckets_here} buckets), mc launches {mc_here} "
               f"({phases_here} phases; {mcs_here} with the scaled class) in "
-              f"{mc_calls} host calls, cold {dt:.2f} s")
+              f"{mc_calls} host calls, expand_pages launches {pg_here}, "
+              f"flats sent dense {recon.uploader.dense_frames} of "
+              f"{recon.uploader.frames} ({recon.uploader.flat_bytes} bytes "
+              f"dense, {recon.uploader.sent_bytes} sent), cold {dt:.2f} s")
         if len(md5s) != n or bad or recon.frames_on_device != n \
                 or recon.frames_on_host:
             raise SystemExit(f"{name}: decode check failed")
@@ -1481,12 +1703,16 @@ def main() -> int:
             raise SystemExit(f"{name}: the MC kernel (or on cp01 its scaled "
                              "class) never ran, ran a plain twin, or made "
                              "more than one launch (host call) a frame")
+        if pg_here != recon.frames_on_device or PG.plain_calls:
+            raise SystemExit(f"{name}: the page expansion did not run once "
+                             "a frame, or ran its plain twin")
     lf_launches, lf_plain = LF.launches, LF.plain_calls
     l4_launches, l4_plain = L4.launches, L4.plain_calls
     in_launches, in_calls = IN.launches, IN.host_calls
     rs_launches = RS.launches
     mc_launches, mcs_launches, mask_launches = (MC.launches, MC.scaled_calls,
                                                 MC.mask_calls)
+    pg_launches, pg_pages = PG.launches, PG.pages
     print(f"decode path: loop-filter kernel launches {lf_launches}, plain "
           f"calls {lf_plain}; 4:2:2 chroma kernel launches {l4_launches}, "
           f"plain calls {l4_plain}; intra kernel launches {in_launches} "
@@ -1496,7 +1722,8 @@ def main() -> int:
           f"mc kernel launches {mc_launches} ({MC.phases} phases; "
           f"{mcs_launches} with the scaled class, {mask_launches} with the "
           f"mask) in {MC.host_calls} host calls, plain calls "
-          f"{MC.plain_calls}; "
+          f"{MC.plain_calls}; page expansion launches {pg_launches} "
+          f"({pg_pages} pages), plain calls {PG.plain_calls}; "
           f"tile-probe launches {TP.launches}")
     if lf_launches == 0 or lf_plain or l4_launches == 0 or l4_plain:
         raise SystemExit("the decode path did not run the loop-filter "
@@ -1510,7 +1737,8 @@ def main() -> int:
     print(f"tile probe path: max_abs_err {err} against the NumPy reference, "
           f"kernel launches {probe_launches}, plain calls {probe_plain}")
     if err or not probe_launches or probe_plain or LF.launches \
-            or L4.launches or IN.launches or RS.launches or MC.launches:
+            or L4.launches or IN.launches or RS.launches or MC.launches \
+            or PG.launches:
         raise SystemExit("the tile-probe path failed")
 
     # 4c. the multi-stream decoders, each counted on its own
@@ -1659,6 +1887,11 @@ def main() -> int:
           f"{lfs_plain_ms:.3f} ms (one run), bound {lfs_bound:.4f} ms "
           f"({lfs_by}); 40 of 40 timed runs equal the plain result [{card}]")
 
+    # 6. the upload
+    for k in counted:
+        k.reset_counts()
+    pg_row = upload_phase(dev, card, PG, UP)
+
     ms, plain_ms, bound, by = lf_rows[10]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1724,7 +1957,13 @@ def main() -> int:
          "plain_ms": mc_rows["nc03 busiest mask"][1],
          "bound_ms": mc_rows["nc03 busiest mask"][2],
          "bound_by": mc_rows["nc03 busiest mask"][3],
-         "library_ms": None}]}))
+         "library_ms": None},
+        {"name": "expand_pages", "route": "cuda",
+         "source": "cuda_vp9_torch/csrc/pages.cu",
+         "replaces": "cuda_vp9_tpu/runtime/fused.py:513",
+         "launches": pg_launches, "max_abs_err": max(pg_err, pg_row[5]),
+         "ms": pg_row[0], "plain_ms": pg_row[1], "bound_ms": pg_row[2],
+         "bound_by": pg_row[3], "library_ms": pg_row[4]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.ref import recon as ref_recon
+from ..utils import spans
 from . import constants as C
 from .bitreader import parse_superframe_index
 from .headers import BitstreamError, FrameHeader, parse_uncompressed_header
@@ -183,7 +184,8 @@ class NativeVp9Decoder:
                 "keyframe / intra-only frame required to reset decoder "
                 "state (resync)")
         self._last_payload = payload
-        plan = self._parser.parse(payload)
+        with spans.span("vp9.parse"):
+            plan = self._parser.parse(payload)
         if isinstance(plan, self._ShowExisting):
             rb = self.ref_slots[plan.frame_to_show]
             if rb is None:

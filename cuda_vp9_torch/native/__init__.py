@@ -150,37 +150,27 @@ def _load():
         _lib.vp9h_pack.restype = ct.c_int64
         _lib.vp9h_pack.argtypes = [ct.c_void_p, ct.POINTER(_PackIn),
                                    ct.POINTER(ct.c_int16)]
-        _lib.vp9h_compact.restype = ct.c_int64
-        _lib.vp9h_compact.argtypes = [ct.POINTER(ct.c_int16), ct.c_int64,
-                                      ct.c_int64, ct.POINTER(ct.c_int16)]
-        _lib.vp9h_count_pages.restype = ct.c_int64
-        _lib.vp9h_count_pages.argtypes = [ct.POINTER(ct.c_int16),
-                                          ct.c_int64]
+        _lib.vp9h_compact_pages.restype = ct.c_int64
+        _lib.vp9h_compact_pages.argtypes = [ct.c_void_p, ct.c_int64,
+                                            ct.c_int64, ct.c_void_p,
+                                            ct.c_void_p]
     return _lib
 
 
-def native_count_pages(flat: np.ndarray, n_pages: int) -> int:
-    """Number of non-zero 512-int16 pages in a packed flat buffer."""
-    lib = _load()
-    return int(lib.vp9h_count_pages(
-        flat.ctypes.data_as(ct.POINTER(ct.c_int16)), n_pages))
-
-
-def native_compact(flat: np.ndarray, n_pages: int, tier: int):
-    """Zero-page compaction in C++ (mirrors TpuReconFused._compact).
-    Gather layout: [hr] header rows with g[K] int16 page map, then
-    [1 + tier] pages (row 0 = shared zero page).  Returns the compacted
-    [hr + 1 + tier, PAGE] int16 array or None (dense)."""
-    lib = _load()
-    PAGE = 512
-    hr = (n_pages + PAGE - 1) // PAGE
-    out = np.empty((hr + 1 + tier, PAGE), np.int16)
-    nz = lib.vp9h_compact(
-        flat.ctypes.data_as(ct.POINTER(ct.c_int16)), n_pages, tier,
-        out.ctypes.data_as(ct.POINTER(ct.c_int16)))
-    if nz < 0:
-        return None
-    return out
+def compact_pages(flat: np.ndarray, max_pages: int, map_addr: int,
+                  pages_addr: int) -> int:
+    """Page compaction of a packed flat (int16, whole 512-int16 pages) in
+    C++, in one pass, into caller memory: the int32 page map at map_addr
+    (0: an all-zero page; i: the i-th nonzero page), the nonzero pages at
+    pages_addr.  Returns their count, or -1 when more than max_pages are
+    nonzero (the flat then ships dense).  Counterpart of
+    TpuReconFused._compact without the tier: no zero page, no padding."""
+    if flat.dtype != np.int16 or not flat.flags.c_contiguous \
+            or flat.size % 512:
+        raise ValueError("compact_pages: flat must be contiguous int16 "
+                         "whole pages")
+    return int(_load().vp9h_compact_pages(flat.ctypes.data, flat.size // 512,
+                                          max_pages, map_addr, pages_addr))
 
 
 def _wrap(ptr, shape, dtype):

@@ -749,49 +749,27 @@ int64_t vp9h_pack(void* h, const Decoder::PackIn* in, int16_t* out) {
   return d->pack_frame_native(*in, out);
 }
 
-// Zero-page compaction: scan the K pages of `flat` and, if at most `tier`
-// are non-zero, emit the compacted upload (header rows carrying page
-// indices as (low15, high) int16 pairs, then the pages).  Returns the
-// number of non-zero pages, or -1 if the frame is too dense (caller
-// ships the dense buffer).  PAGE = 512 int16 (1 KB).
-// Gather layout: header rows carry g[K] int16 (0 = zero page, i = data
-// row i), then [1 + tier] pages whose row 0 is the shared zero page.
-// The device expands with ONE row-gather (1 KB rows ride HBM at
-// ~100 GB/s; the old index-scatter expansion cost ~6 ns/element).
-int64_t vp9h_compact(const int16_t* flat, int64_t n_pages, int64_t tier,
-                     int16_t* out) {
+// Page compaction of a packed flat in one pass (PAGE = 512 int16, 1 KB).
+// Writes the page map g[n_pages] int32 to `map` (0: an all-zero page; i:
+// the i-th nonzero page, counted from 1) and the nonzero pages, in order,
+// to `pages`, with no zero page and no padding.  Returns the number of
+// nonzero pages, or -1 as soon as more than max_pages are nonzero (the
+// caller then ships the flat dense; `map` and `pages` hold partial data).
+// The device rebuilds the flat from it with one gather of 1 KB rows
+// (cuda_vp9_torch/csrc/pages.cu).
+int64_t vp9h_compact_pages(const int16_t* flat, int64_t n_pages,
+                           int64_t max_pages, int32_t* map, int16_t* pages) {
   const int64_t PAGE = 512;
-  int64_t hr = (n_pages + PAGE - 1) / PAGE;
-  int16_t* head = out;
-  int16_t* pages = out + hr * PAGE;
-  memset(head, 0, hr * PAGE * sizeof(int16_t));
-  memset(pages, 0, PAGE * sizeof(int16_t));  // shared zero page
   int64_t nz = 0;
   for (int64_t p = 0; p < n_pages; p++) {
     const uint64_t* w = (const uint64_t*)(flat + p * PAGE);
     bool any = false;
     for (int64_t i = 0; i < PAGE / 4; i++)
       if (w[i]) { any = true; break; }
-    if (!any) continue;
-    if (nz >= tier) return -1;
-    nz++;
-    head[p] = (int16_t)nz;
+    if (!any) { map[p] = 0; continue; }
+    if (nz == max_pages) return -1;
     memcpy(pages + nz * PAGE, flat + p * PAGE, PAGE * sizeof(int16_t));
-  }
-  memset(pages + (nz + 1) * PAGE, 0,
-         (tier - nz) * PAGE * sizeof(int16_t));
-  return nz;
-}
-
-// Count non-zero pages only (the caller picks the smallest compiled
-// page-tier step variant that fits before emitting the compact upload).
-int64_t vp9h_count_pages(const int16_t* flat, int64_t n_pages) {
-  const int64_t PAGE = 512;
-  int64_t nz = 0;
-  for (int64_t p = 0; p < n_pages; p++) {
-    const uint64_t* w = (const uint64_t*)(flat + p * PAGE);
-    for (int64_t i = 0; i < PAGE / 4; i++)
-      if (w[i]) { nz++; break; }
+    map[p] = (int32_t)++nz;
   }
   return nz;
 }

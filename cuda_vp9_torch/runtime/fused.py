@@ -2,10 +2,12 @@
 
 Counterpart of `cuda_vp9_tpu/runtime/fused.py` (`make_frame_step`,
 `get_frame_step`) for the slice this package covers: bit depths 8, 10 and
-12, chroma 4:2:0, 4:4:4 and 4:2:2, lossless frames (the WHT on bucket
-tx0, the only bucket of a lossless layout) and a dense wire
-(pages_tier == 0).  It reads the flat int16 wire of `runtime/pack.py` or
-of the native packer, the same bytes the JAX step reads.
+12, chroma 4:2:0, 4:4:4 and 4:2:2, and lossless frames (the WHT on
+bucket tx0, the only bucket of a lossless layout).  It reads the flat
+int16 wire of `runtime/pack.py` or of the native packer, the same bytes
+the JAX step reads, uploaded page-compacted (`runtime/upload.py`) and
+rebuilt on the device as the JAX step's page-tier branch does
+(fused.py:513-518).
 
 `make_batched_step` / `get_batched_step` are the multi-stream step (the
 counterpart of JAX's vmapped `get_batched_step`): the same stages, once
@@ -16,14 +18,16 @@ step(pool, ring, kernels, flat) reconstructs one frame and updates
 `pool` and `ring` in place (JAX donates them; here the update is in
 place to keep one copy of the pool on the device):
 
-  residual transforms of every coefficient bucket -> MC (mc4, mc8,
+  upload (page compaction on the host, one host-to-device copy, the
+  page expansion: `ops/cuda/pages.py`, one launch) -> residual
+  transforms of every coefficient bucket -> MC (mc4, mc8,
   mc16, mc32, then the scaled-reference class mcs; compound averages
   from each class's n_ref0 chunk on) -> inter residual add under mi_mask
   -> intra wavefront, chunk by chunk -> loop filter -> pool refresh
   (misc[5:13]) and ring row misc[13].
 
-On a CUDA pool the residual transforms (`ops/cuda/residual.py`, one
-launch per frame for every bucket), MC with the inter residual add
+On a CUDA pool the page expansion, the residual transforms
+(`ops/cuda/residual.py`, one launch per frame for every bucket), MC with the inter residual add
 (`ops/cuda/mc.py`, one persistent launch per frame whose last phase is
 the mask add), the intra wavefront (`ops/cuda/intra.py`, one persistent
 launch per frame that runs the chunks as a chain) and the loop filter
@@ -44,10 +48,12 @@ normative edge clamps (ops/ref/inter.convolve_block semantics); the
 TPU's one-hot band formulation (and with it the headers' row band) is
 not ported.
 
-`flat` is the HOST numpy buffer.  The step uploads it once and reads
-every loop bound (the misc trip counts, lf_on, the refresh flags and
-the ring slot) from the host copy, so it never waits on the device for
-a number.
+`flat` is the HOST numpy buffer.  The step uploads it once, through the
+caller's `upload.Uploader` (the `uploader` keyword; by default one the
+step keeps), whose spans are vp9.compact (host), vp9.upload (the copy)
+and vp9.expand (the kernel), and reads every loop bound (the misc trip
+counts, lf_on, the refresh flags and the ring slot) from the host copy,
+so it never waits on the device for a number.
 
 Padding.  The packer pads records with y = 0 on the wire; JAX drops
 their writes (`mode="drop"`) and clamps their reads.  Torch wraps
@@ -61,7 +67,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import models as M
 from ..ops.cuda.intra import intra_pass, intra_pass_batched
@@ -69,7 +74,9 @@ from ..ops.cuda.lf422 import lf_chroma_422
 from ..ops.cuda.loopfilter import lf_frame, lf_frames
 from ..ops.cuda.mc import Mask, mc_class, mc_frame
 from ..ops.cuda.residual import Bucket, residual_frame
+from ..utils import spans
 from . import pack
+from .upload import Uploader
 
 I32 = torch.int32
 
@@ -205,11 +212,33 @@ def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
             "lfw_v", "lfw_h", "lfw_mb", "lfw_lm", "lfw_hv")), lf_on, bd=bd)
 
 
+def upload(up: Uploader, flats, aux=None):
+    """The host flats (a sequence of A) and the int16 aux on the device
+    through `up`, in its three spans: vp9.compact, vp9.upload and
+    vp9.expand.  Returns the device flats [A, nflat] int16 and the aux
+    (None without one), both valid until up's next call."""
+    with spans.span("vp9.compact"):
+        st = up.stage(flats, aux)
+    with spans.span("vp9.upload"):
+        buf = up.send(st)
+    with spans.span("vp9.expand"):
+        flats_d = up.expand(st, buf)
+    return flats_d, None if aux is None else up.aux(st, buf)
+
+
+def _own_uploader(own: dict, dev) -> Uploader:
+    """The step's own Uploader for dev, made at first use."""
+    up = own.get(dev)
+    if up is None:
+        up = own[dev] = Uploader(dev)
+    return up
+
+
 def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
                     ss=(1, 1), lossless: bool = False):
     """The step for one frame geometry, bit depth, chroma format, capacity
     tier and lossless flag (see the module docstring).  step(pool, ring,
-    kernels, flat) -> None."""
+    kernels, flat, uploader=None) -> None."""
     ss = tuple(ss)
     if ss not in CHROMA_FORMATS or bd not in (8, 10, 12):
         raise ValueError(f"no frame step for bd {bd}, chroma {ss}")
@@ -218,14 +247,15 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
     hc, wc = ha >> ss[1], wa >> ss[0]
     segs = layout.segs
 
-    def step(pool, ring, kernels, flat: np.ndarray):
+    own = {}
+
+    def step(pool, ring, kernels, flat: np.ndarray, uploader=None):
         dev = pool.device
         pha, pwa = pool.shape[2], pool.shape[3]
         if pha < ha or pwa < wa:
             raise ValueError(f"pool canvas {(pha, pwa)} is smaller than "
                              f"the frame canvas {(ha, wa)}")
-        with record_function("vp9.upload"):
-            flat_d = torch.from_numpy(flat).to(dev)
+        flat_d = upload(uploader or _own_uploader(own, dev), [flat])[0][0]
 
         def host(name):
             off, shape = segs[name]
@@ -246,12 +276,12 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
         F = Fbuf[:-1].view(3, ha, wa)
         R = Rbuf[:-1].view(3, ha, wa)
 
-        with record_function("vp9.residual"):
+        with spans.span("vp9.residual"):
             # one stream: the flat as [1, nflat]; every bucket in one call
             residual_stage(Rbuf, flat_d[None], lambda slot: int(misc[slot]),
                            segs, ha, wa, bd, lossless)
 
-        with record_function("vp9.inter"):
+        with spans.span("vp9.inter"):
             # every class with chunks, then mcs, then the mask add: one
             # kernel launch over the flat as a batch of one stream
             classes, mask = inter_args(segs, [flat], [misc], mi_rows,
@@ -259,17 +289,17 @@ def make_frame_step(mi_rows: int, mi_cols: int, layout, bd: int = 8,
             mc_frame(Fbuf, Rbuf, pool, kernels, flat_d[None], classes, mask,
                      None, bd, ha, wa)
 
-        with record_function("vp9.intra"):
+        with spans.span("vp9.intra"):
             n_intra = int(misc[3])
             if n_intra:
                 intra_pass(Fbuf, R, seg("intra", n_intra, torch.int16),
                            seg("chunk_bs", n_intra, torch.int16), n_intra,
                            bd)
 
-        with record_function("vp9.loopfilter"):
+        with spans.span("vp9.loopfilter"):
             loop_filter(F, seg, int(misc[4]), mi_rows, mi_cols, bd, ss)
 
-        with record_function("vp9.refresh"):
+        with spans.span("vp9.refresh"):
             for i in range(8):
                 if misc[5 + i] > 0:
                     if (pha, pwa) != (ha, wa):
@@ -312,13 +342,16 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
     counterpart of the vmapped step of `fused.get_batched_step`
     (fused.py:724-766), with the vmap written out as a stream axis.
 
-    step(pool, ring, kernels, flats, active) -> None.  pool [N, 8, 3, ha,
-    wa] int32 and ring [N, RING, nout] are updated in place; flats is a
-    HOST int16 array [A, nflat], the flat of each stream in `active` (a
-    host sequence of A distinct stream indices: the streams with a frame
-    this round, in any order).  A stream outside `active` sits the round
-    out: no records, no refresh, no ring write.  Every loop bound comes
-    from the host flats, as in the single-frame step.
+    step(pool, ring, kernels, flats, active, uploader=None) -> None.  pool
+    [N, 8, 3, ha, wa] int32 and ring [N, RING, nout] are updated in place;
+    flats holds A HOST int16 flats [nflat] (an array [A, nflat] or a
+    sequence), the flat of each stream in `active` (a host sequence of A
+    distinct stream indices: the streams with a frame this round, in any
+    order).  A stream outside `active` sits the round out: no records, no
+    refresh, no ring write.  Every loop bound comes from the host flats,
+    as in the single-frame step.  The round is one upload (`upload`: the
+    A compacted flats and the int16 aux of the active list and the
+    refresh pairs, one copy, one expansion launch).
 
     The A frames share one frame buffer of 3A planes (plus the trash
     element), frame k at planes 3k .. 3k + 2, and every stage runs once
@@ -337,11 +370,14 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
     segs = layout.segs
     nflat = cdiv(layout.size, pack.PAGE) * pack.PAGE
 
-    def step(pool, ring, kernels, flats: np.ndarray, active):
+    own = {}
+
+    def step(pool, ring, kernels, flats, active, uploader=None):
         dev = pool.device
         A = len(active)
         if tuple(pool.shape) != (n_streams, 8, 3, ha, wa) \
-                or flats.shape != (A, nflat) or not A:
+                or len(flats) != A or not A \
+                or any(f.shape != (nflat,) for f in flats):
             raise ValueError("batched step: pool, flats or active do not "
                              "match the step's geometry")
         miscs = [layout.view(f, "misc").astype(np.int64) for f in flats]
@@ -350,11 +386,9 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
             zip(active, miscs)) for i in range(8) if m[5 + i] > 0]
         aux = np.array(list(active) + [d for d, _ in refresh]
                        + [k for _, k in refresh], np.int16)
-        with record_function("vp9.upload"):
-            up = torch.from_numpy(np.concatenate([flats.reshape(-1), aux])
-                                  ).to(dev)
-        flat_d = up[:A * nflat].view(A, nflat)
-        aux_d = up[A * nflat:].long()
+        flat_d, aux16 = upload(uploader or _own_uploader(own, dev), flats,
+                               aux)
+        aux_d = aux16.long()
         act_d = aux_d[:A]
 
         def most(slot):
@@ -375,21 +409,21 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
         pool_s = pool.view(n_streams * 8, 3, ha, wa)
         misc16 = seg("misc", dtype=torch.int16)
 
-        with record_function("vp9.residual"):
+        with spans.span("vp9.residual"):
             # every bucket in one call over every stream's records;
             # stream k's units land in planes 3k + plane
             residual_stage(Rbuf, flat_d, most, segs, ha, wa, bd, lossless)
 
-        with record_function("vp9.inter"):
+        with spans.span("vp9.inter"):
             # every class with chunks, then the mask add, in one kernel
             # launch; chunks before each stream's own n_ref0 (read on the
             # device) are first predictions, the others compound second
             # ones
             classes, mask = inter_args(segs, flats, miscs, mi_rows, mi_cols)
             mc_frame(Fbuf, Rbuf, pool_s, kernels, flat_d, classes, mask,
-                     up[A * nflat:A * nflat + A], bd, ha, wa)
+                     aux16[:A], bd, ha, wa)
 
-        with record_function("vp9.intra"):
+        with spans.span("vp9.intra"):
             n_intra = most(3)
             if n_intra:
                 intra_pass_batched(
@@ -398,13 +432,13 @@ def make_batched_step(n_streams: int, mi_rows: int, mi_cols: int, layout,
                     seg("chunk_bs", n_intra, torch.int16),
                     misc16[:, 3], n_intra, bd)
 
-        with record_function("vp9.loopfilter"):
+        with spans.span("vp9.loopfilter"):
             lf_frames(F, seg("lfm", dtype=torch.int16),
                       seg("lf_thr", dtype=torch.int16),
                       [int(m[4]) for m in miscs], mi_rows=mi_rows,
                       mi_cols=mi_cols, bd=bd)
 
-        with record_function("vp9.refresh"):
+        with spans.span("vp9.refresh"):
             if refresh:
                 nr = len(refresh)
                 pool_s[aux_d[A:A + nr]] = F[aux_d[A + nr:]]

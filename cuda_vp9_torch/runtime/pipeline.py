@@ -26,7 +26,11 @@ with the C++ packer, the others with `runtime/pack.pack_frame`, as in
 JAX.  Frames outside the slice (4:4:0, scaled references with other
 chroma) raise NotImplementedError naming the ROADMAP item, where JAX
 sends them to its host oracle; they never go to the host here.  The flat
-ships dense: page compaction (`TpuReconFused._compact`) is not ported.
+goes up page-compacted from pinned memory through the recon's
+`upload.Uploader` (`TpuReconFused._compact`, without its page tiers), and
+the step rebuilds it on the device.  Spans (`utils/spans.py`): vp9.pack
+around the pack, vp9.readback around the fetch of the ring rows, and the
+step's own.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ from .. import models as M
 from ..decoder import constants as C
 from ..ops.ref import recon as ref_recon
 from ..ops.ref.inter import ScaleFactors
+from ..utils import spans
 from . import fused, pack
+from .upload import Uploader
 
 
 def _align(mi: int) -> int:
@@ -90,6 +96,7 @@ class TorchRecon:
         self.device = torch.device(device)
         self.kernels = torch.as_tensor(np.asarray(M.FILTER_KERNELS, np.int32),
                                        device=self.device)
+        self.uploader = Uploader(self.device)
         self._steps = {}
         self._pool = None
         self._ring = None
@@ -113,10 +120,11 @@ class TorchRecon:
         """Fetch every pending frame's ring row in one device-to-host
         copy; the ring is then free from row 0."""
         if self._pending:
-            lo = self._pending[0]._slot
-            rows = self._ring[lo:self._pending[-1]._slot + 1].cpu().numpy()
-            for lp in self._pending:
-                lp._set_from_ring(rows[lp._slot - lo])
+            with spans.span("vp9.readback"):
+                lo, hi = self._pending[0]._slot, self._pending[-1]._slot
+                rows = self._ring[lo:hi + 1].cpu().numpy()
+                for lp in self._pending:
+                    lp._set_from_ring(rows[lp._slot - lo])
         self._pending = []
         self._ring_slot = 0
 
@@ -208,14 +216,15 @@ class TorchRecon:
             step, caps, layout = self._step(
                 hdr.mi_rows, hdr.mi_cols, tier, pool_ha, bool(hdr.lossless),
                 hdr.bit_depth, ss)
-            if nparser is not None and ss == (1, 1):
-                flat = nparser.pack(plan, refs, caps, layout, ring_slot=slot,
-                                    pool_ha=pool_ha)
-            else:
-                flat = pack.pack_frame(plan, refs, caps, layout,
-                                       pool_ha=pha)
-                if flat is not None:
-                    layout.view(flat, "misc")[13] = slot
+            with spans.span("vp9.pack"):
+                if nparser is not None and ss == (1, 1):
+                    flat = nparser.pack(plan, refs, caps, layout,
+                                        ring_slot=slot, pool_ha=pool_ha)
+                else:
+                    flat = pack.pack_frame(plan, refs, caps, layout,
+                                           pool_ha=pha)
+                    if flat is not None:
+                        layout.view(flat, "misc")[13] = slot
             return step, flat
 
         tier = "full" if hdr.frame_is_intra_only else (
@@ -226,7 +235,8 @@ class TorchRecon:
             self.frames_wide += flat is not None
         if flat is None:
             return None
-        step(self._pool, self._ring, self.kernels, flat)
+        step(self._pool, self._ring, self.kernels, flat,
+             uploader=self.uploader)
         planes = LazyPlanes(self, slot, ha, wa, ss)
         self._pending.append(planes)
         self._ring_slot = slot + 1

@@ -2,22 +2,27 @@
 
 Usage:
   python -m cuda_vp9_torch.tools.profile_decode in.ivf [--frames N]
-         [--device cuda] [--profile-frames K] [--streams S]
+         [--device cuda] [--threads T] [--profile-frames K] [--streams S]
          [--time-calls NAME[,NAME...]] [--reps R]
 
-Decodes the stream once to warm up (kernel build, allocator, cached
-steps), then:
-  * decodes it again with a stage clock in place of the step's spans
-    (runtime/fused.py: vp9.upload, vp9.residual, vp9.inter, vp9.intra,
-    vp9.loopfilter, vp9.refresh): the device is synchronised at each span
-    edge, and the host wall time inside each span is summed.  Prints the
-    frame rate of this pass and each stage's milliseconds and share, and
-    the kernels' counters over the pass: the launches of the loop filter
-    (lf_frame, lf_chroma_422), of the residual kernel (with the buckets
-    they ran), of the intra kernel (with the chunks they ran) and of the
-    MC kernel (with the phases they ran, and the launches that ran its
-    scaled class and its mask phase), with the host calls of intra and
-    MC, and the calls of each plain twin (0 on a CUDA device);
+Prints the host's core count (os.cpu_count()), decodes the stream once
+to warm up (kernel build, allocator, cached steps), then:
+  * decodes it again with a stage clock in place of every span of the
+    decode (utils/spans.py): the host's vp9.parse (decoder/frame.py),
+    vp9.pack and vp9.readback (runtime/pipeline.py, multistream.py), and
+    the step's vp9.compact, vp9.upload, vp9.expand, vp9.residual,
+    vp9.inter, vp9.intra, vp9.loopfilter and vp9.refresh
+    (runtime/fused.py): the device is synchronised at each span edge,
+    and the host wall time inside each span is summed.  Prints the frame
+    rate of this pass, each span's milliseconds and share, what no span
+    covers ("outside spans"), the upload's flats, flats sent dense and
+    bytes (dense and sent), and the kernels' counters over the pass: the
+    launches of the page expansion (with the pages they wrote), of the
+    loop filter (lf_frame, lf_chroma_422), of the residual kernel (with
+    the buckets they ran), of the intra kernel (with the chunks they ran)
+    and of the MC kernel (with the phases they ran, and the launches that
+    ran its scaled class and its mask phase), with the host calls of
+    intra and MC, and the calls of each plain twin (0 on a CUDA device);
   * with --profile-frames K, decodes the first K frames under
     torch.profiler and prints the kernel launches, the device time of
     all kernels and copies, the device's busy share (that time over the
@@ -34,14 +39,17 @@ steps), then:
     per call and each name's sums over the pass.  A name the step does
     not call is never timed.  On the CPU only the host clock is read.
 
-With --streams S > 1 every pass decodes S copies of the stream in
-lockstep through BatchedTorchDecoder (runtime/multistream.py), whose
-batched step has the same spans; rates are aggregate over the copies.
+--threads T parses each frame with T tile threads (DecCfg.threads,
+vpxdec -t; default 1).  With --streams S > 1 every pass decodes S copies
+of the stream in lockstep through BatchedTorchDecoder
+(runtime/multistream.py), one parse thread a stream, whose batched step
+has the same spans; rates are aggregate over the copies.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import sys
 import time
@@ -58,22 +66,27 @@ from ..ops.cuda import intra as IN
 from ..ops.cuda import lf422 as L4
 from ..ops.cuda import loopfilter as LF
 from ..ops.cuda import mc as MC
+from ..ops.cuda import pages as PG
 from ..ops.cuda import residual as RS
+from ..utils import spans
 from ..utils.md5 import frame_md5
 from ..runtime import fused
 
-_KERNELS = (LF, L4, RS, MC, IN)
+_KERNELS = (PG, LF, L4, RS, MC, IN)
 
 
-def decode(path: str, device: str, limit: int = 0, streams: int = 1):
+def decode(path: str, device: str, limit: int = 0, streams: int = 1,
+           threads: int = 1):
     """Decode up to `limit` frames (0 = all) through the codec API with
-    vp9_dx_torch(device), or `streams` copies of them through
-    BatchedTorchDecoder, and read each one back.  Returns (per-frame
-    MD5s, the recon or decoder with its frame counts)."""
+    vp9_dx_torch(device) and `threads` parse threads, or `streams` copies
+    of them through BatchedTorchDecoder, and read each one back.  Returns
+    (per-frame MD5s, the recon or decoder with its frame counts and its
+    `uploader`)."""
     if streams > 1:
         return _decode_batched(path, device, limit, streams)
     ctx = CodecCtx()
-    if vpx_codec_dec_init(ctx, vp9_dx_torch(device), DecCfg()) != 0:
+    if vpx_codec_dec_init(ctx, vp9_dx_torch(device),
+                          DecCfg(threads=threads)) != 0:
         raise RuntimeError(f"decoder init failed: {ctx.err_detail}")
     imgs = []
     with open_video(path) as r:
@@ -99,9 +112,10 @@ def _decode_batched(path, device, limit, streams):
     return sum(md5s, []), dec
 
 
-def stage_clock(path, device, limit, streams=1):
+def stage_clock(path, device, limit, streams=1, threads=1, out=None):
     """(frames, wall seconds, {span: seconds}) of one decode with the
-    device synchronised at every span edge."""
+    device synchronised at every span edge; `out`, a dict, receives the
+    recon or decoder under "recon"."""
     cuda = torch.device(device).type == "cuda"
     spent = defaultdict(float)
 
@@ -117,15 +131,17 @@ def stage_clock(path, device, limit, streams=1):
                 torch.cuda.synchronize()
             spent[name] += time.perf_counter() - t0
 
-    span = fused.record_function
-    fused.record_function = clock
+    span = spans.span
+    spans.span = clock
     try:
         t0 = time.perf_counter()
-        n = len(decode(path, device, limit, streams)[0])
+        md5s, recon = decode(path, device, limit, streams, threads)
         wall = time.perf_counter() - t0
     finally:
-        fused.record_function = span
-    return n, wall, spent
+        spans.span = span
+    if out is not None:
+        out["recon"] = recon
+    return len(md5s), wall, spent
 
 
 def kernel_profile(path, device, k, streams=1):
@@ -210,6 +226,8 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=0,
                     help="frames to decode (default all)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--threads", type=int, default=1, metavar="T",
+                    help="tile threads of the parse (one stream only)")
     ap.add_argument("--profile-frames", type=int, default=0, metavar="K",
                     help="also profile the first K frames' kernels (CUDA)")
     ap.add_argument("--streams", type=int, default=1, metavar="S",
@@ -220,20 +238,30 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20,
                     help="runs of each timed call (--time-calls)")
     args = ap.parse_args(argv)
+    if args.threads > 1 and args.streams > 1:
+        ap.error("--threads: the batched decoder parses with one thread a "
+                 "stream")
 
-    decode(args.input, args.device, args.frames, args.streams)
+    print(f"host cores (os.cpu_count): {os.cpu_count()}")
+    decode(args.input, args.device, args.frames, args.streams, args.threads)
     for k in _KERNELS:
         k.reset_counts()
+    got = {}
     n, wall, spent = stage_clock(args.input, args.device, args.frames,
-                                 args.streams)
+                                 args.streams, args.threads, got)
     print(f"{args.input}: {n} frames, {wall:.3f} s with a stage clock "
-          f"({n / wall:.2f} fps), device {args.device}")
+          f"({n / wall:.2f} fps), device {args.device}, {args.threads} "
+          "parse threads")
     for name, s in spent.items():
         print(f"  {name:16s} {s * 1e3:10.1f} ms  {s / wall:6.1%}")
     rest = wall - sum(spent.values())
-    print(f"  {'outside step':16s} {rest * 1e3:10.1f} ms  {rest / wall:6.1%}"
-          "  (parse, pack, read-back)")
-    print(f"  kernel launches: lf_frame {LF.launches}, lf_chroma_422 "
+    print(f"  {'outside spans':16s} {rest * 1e3:10.1f} ms  "
+          f"{rest / wall:6.1%}")
+    up = got["recon"].uploader
+    print(f"  upload: {up.frames} flats, {up.dense_frames} sent dense, "
+          f"{up.flat_bytes} bytes dense, {up.sent_bytes} sent")
+    print(f"  kernel launches: expand_pages {PG.launches} ({PG.pages} "
+          f"pages), lf_frame {LF.launches}, lf_chroma_422 "
           f"{L4.launches}, residual {RS.launches} ({RS.buckets} buckets), "
           f"mc {MC.launches} ({MC.phases} phases; {MC.scaled_calls} with "
           f"the scaled class, {MC.mask_calls} with the mask) in "

@@ -3,18 +3,22 @@ codec API with `vp9_dx_torch(device)`.
 
 Usage:
   python -m cuda_vp9_torch.tools.vpxdec in.ivf --md5 [--device cuda]
-         [--limit N]
+         [--limit N] [-t T] [--summary]
 
 --md5 prints one `<md5>  img-WxH-NNNN.i420` line per frame, the lines of
 `cuda_vp9_tpu/tools/vpxdec.py --md5` and of the golden
 `tests/fixtures/*.md5` files; above 8 bits each sample is hashed as two
-little-endian bytes, as libvpx's vpxdec does.
+little-endian bytes, as libvpx's vpxdec does.  -t/--threads parses each
+frame with T tile threads (vpxdec -t; default 1), and --summary prints
+`N frames in S s (F fps)` to stderr at the end, as
+`cuda_vp9_tpu/tools/vpxdec.py` does.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 from collections import deque
 
 from ..codec import (CodecCtx, DecCfg, FrameIter, vp9_dx_torch,
@@ -37,14 +41,20 @@ def main(argv=None):
                     help="torch device of the frame step (default cuda)")
     ap.add_argument("--limit", type=int, default=0, metavar="N",
                     help="stop after N frames")
+    ap.add_argument("-t", "--threads", type=int, default=1,
+                    help="tile-parallel host parse threads (vpxdec -t)")
+    ap.add_argument("--summary", action="store_true",
+                    help="print decode rate summary")
     args = ap.parse_args(argv)
 
     ctx = CodecCtx()
-    if vpx_codec_dec_init(ctx, vp9_dx_torch(args.device), DecCfg()) != 0:
+    if vpx_codec_dec_init(ctx, vp9_dx_torch(args.device),
+                          DecCfg(threads=args.threads)) != 0:
         print(f"failed to init decoder: {ctx.err_detail}", file=sys.stderr)
         return 1
     n = 0
     q = deque()
+    t0 = time.time()
 
     def consume(img):
         nonlocal n
@@ -70,6 +80,9 @@ def main(argv=None):
                 break
     while q and not done():
         consume(q.popleft())
+    dt = time.time() - t0
+    if args.summary:
+        print(f"{n} frames in {dt:.2f}s ({n / dt:.2f} fps)", file=sys.stderr)
     vpx_codec_destroy(ctx)
     return 0
 
