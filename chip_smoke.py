@@ -52,7 +52,8 @@ Phases, each of which exits non-zero on failure:
          and one launch a call, with the phases its table lists;
        - the page expansion (K5's, csrc/pages.cu) against
          expand_pages_plain and the dense flats on a round of 4 random
-         flats (compacted, dense, all zero) of 2,231 pages, one launch;
+         flats (compacted, dense, all zero) of 2,231 pages, one launch,
+         and on a round of MAX_FLATS + 6 flats of 37 pages, two launches;
   3. run the frame step once at one 64x64 superblock (fused.entry);
   4. the main paths, each with the kernel counts set to 0 just before it
      and read just after:
@@ -105,7 +106,11 @@ Phases, each of which exits non-zero on failure:
      torch mask add that the last phase replaced, with ptxas's
      registers, spills and shared memory; each timed run of the loop
      filter is also held against the plain result, and lf_frames on 16
-     640x384 frames is timed beside 16 lf_frame calls;
+     640x384 frames is timed beside 16 lf_frame calls; the loop filter's
+     one SB step (K1) and the 4:2:2 chroma filter's tile step (K7) on a
+     frame one tile row tall, K7's split three ways (as it is, with no
+     edge bit, and built without its write-back, LF422_SPLIT_DEFINES),
+     each also on the 1088x960 pair to read the hand-offs' share;
   6. the upload (runtime/upload.py): decode nc03, hd01, xl01 and 16 x
      nc03 with every expansion checked as it runs, the kernel's flats
      against expand_pages_plain on the same upload and against the
@@ -113,10 +118,11 @@ Phases, each of which exits non-zero on failure:
      be 0), and print each frame's (each round's) dense and sent bytes
      and the flats sent dense, with the host time of each call's
      compaction (its first two calls pin the staging buffers); time the
-     kernel (CUDA events, median of
-     20) against its plain version and against one torch.index_select
-     call on the same pages, beside its bound, on hd01's keyframe, an
-     hd01 inter frame and a 16 x nc03 inter round; print the host spans
+     kernel (CUDA events, median of 20; the wrapper's host time and the
+     launch alone on the device beside it) against its plain version and
+     against one torch.index_select call on the same pages, beside its
+     bound, on hd01's keyframe, an hd01 inter frame and a 16 x nc03 inter
+     round; print the host spans
      (vp9.parse, vp9.pack, vp9.compact, vp9.upload, vp9.expand,
      vp9.readback) of a stage-clocked decode of each warm stream and of
      16 x nc03; and hd01 and xl01 parsed with 1 and with min(4, cores)
@@ -125,6 +131,14 @@ Phases, each of which exits non-zero on failure:
 The last two lines are a JSON record of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the repository beside this file, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --baseline DIR
+
+runs only phase 5's timings of the two loop filters (K1's frame and step,
+K7's pair, p1_04's planes and its step split) and phase 6's of the page
+expansion, with the package of DIR (a checkout of another commit, such as
+the parent) in place of this one, so that one chip call times both
+commits with the same code, in turns.
 """
 
 from __future__ import annotations
@@ -169,6 +183,12 @@ MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
 RESIZE = ("in02_352x288", "sc01_352x288_scaled")
 MSD = ("kf01_64x64", "kf03_odd_98x66")
 KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc", "pages")
+# loopfilter.cu built without K7's write-back, for the split of its step
+LF422_SPLIT_DEFINES = ("VP9_LF422_NO_WRITEBACK=1",)
+# tile steps on the critical path of a 1920x1088 frame (K1) and of its
+# 4:2:2 chroma, two 1088x960 planes (K7): cols + rows - 1 (the kernels
+# hand off in half steps: csrc/loopfilter.cu)
+N_STEPS = 30 + 17 - 1
 # mc.cu built with other register caps (blocks an SM at least; the
 # source's own is 4), timed beside it in phase 5
 MC_CAP_BUILDS = tuple((f"VP9_MC_MIN_BLOCKS={b}",) for b in (1, 6, 8))
@@ -1292,7 +1312,7 @@ def mc_timings(card, MC, _build):
                           f"ms (host {mask_host:.4f} ms)")
         caps = []
         for d in MC_CAP_BUILDS:
-            with mc_build(_build, d):
+            with lib_build(_build, "mc", d):
                 Fv = F0.clone()
                 run(Fv)
                 if not torch.equal(Fv[:-1], Fp[:-1]):
@@ -1352,7 +1372,22 @@ def pages_vs_plain(rng, dev, PG, UP) -> int:
     if err or launched != 1 or dense != [False, True, False, False] \
             or not aux_ok:
         raise SystemExit("page expansion disagrees")
-    return err
+    # past the flats one launch takes: one launch for each MAX_FLATS
+    n, n_pages = PG.MAX_FLATS + 6, 37
+    flats = [f[:n_pages * PG.PAGE].copy() for f in flats] * (n // 4 + 1)
+    flats = flats[:n]
+    st = up.stage(flats)
+    buf = up.send(st)
+    before = PG.launches
+    got = up.expand(st, buf)
+    launched = PG.launches - before
+    err2 = int((got.int() - torch.from_numpy(np.stack(flats)).to(dev).int()
+                ).abs().max())
+    print(f"expand_pages kernel vs the dense flats, {n} x {n_pages} pages: "
+          f"max_abs_err {err2} (tolerance 0), {launched} launches")
+    if err2 or launched != 2:
+        raise SystemExit("page expansion disagrees past MAX_FLATS flats")
+    return max(err, err2)
 
 
 def one_gather(buf, flats, n_pages):
@@ -1374,11 +1409,14 @@ def one_gather(buf, flats, n_pages):
     return torch.cat(rows), torch.cat(maps)
 
 
-def upload_phase(dev, card, PG, UP):
-    """Phase 6: the upload of nc03, hd01, xl01 and 16 x nc03 (module
-    docstring).  Exits on a failed check; returns (ms, plain_ms, bound,
-    by, library_ms, max_abs_err) of hd01's keyframe."""
-    from cuda_vp9_torch.tools.profile_decode import stage_clock
+def capture_uploads(PG, UP, streams, rounds=None):
+    """Decode `streams` ((name, frames), ...) and the first `rounds` rounds
+    of 16 x nc03 on the card, every frame MD5-exact, with each expansion
+    held as it runs against expand_pages_plain on the same upload and
+    against the dense host flats.  Returns (calls: run -> [(dense bytes,
+    sent bytes, flats sent dense, stage host ms)] per call, kept: the
+    uploads of UPLOAD_TIMED as (buf, flats, n_pages, n_flats), bad: flats
+    and pages that differ, max abs error)."""
     real_stage, real_expand = UP.Uploader.stage, UP.Uploader.expand
     label, calls, last = [None], {}, {}
     kept, bad = {}, [0, 0, 0]
@@ -1395,7 +1433,7 @@ def upload_phase(dev, card, PG, UP):
 
     def expand(self, st, buf):
         out = real_expand(self, st, buf)
-        A, K = len(st.flats), st.n_pages
+        A, K = out.shape[0], out.shape[1] // 512
         plain = PG.expand_pages_plain(torch.empty_like(out), buf, st.flats,
                                       K)
         want = torch.from_numpy(np.stack(last["flats"])).to(out.device)
@@ -1411,35 +1449,34 @@ def upload_phase(dev, card, PG, UP):
 
     UP.Uploader.stage, UP.Uploader.expand = stage, expand
     try:
-        for name, n in UPLOAD_STREAMS:
+        for name, n in streams:
             label[0] = name.split("_")[0]
             md5s, _, _ = decode(name, n)
             if md5s != golden_md5(name)[:n]:
                 raise SystemExit(f"{name}: MD5 mismatch in phase 6")
         label[0] = "16 x nc03"
-        md5s, _, _ = batched(NC03_BATCH)
-        if any(m != golden_md5(NC03_BATCH[0]) for m in md5s):
+        md5s, _, _ = batched(NC03_BATCH, rounds)
+        if any(m != golden_md5(NC03_BATCH[0])[:len(m)] for m in md5s):
             raise SystemExit("16 x nc03: MD5 mismatch in phase 6")
     finally:
         UP.Uploader.stage, UP.Uploader.expand = real_stage, real_expand
-    n_flats = sum(len(v) for v in calls.values())
-    print(f"upload: {n_flats} uploads of nc03, hd01, xl01 and 16 x nc03 "
+    n_calls = sum(len(v) for v in calls.values())
+    print(f"upload: {n_calls} uploads of "
+          f"{', '.join(n.split('_')[0] for n, _ in streams)} and 16 x nc03 "
           f"checked as they ran: flats that differ {bad[0]}, pages that "
           f"differ {bad[1]} (kernel against expand_pages_plain and against "
           f"the dense flats), max_abs_err {bad[2]} (tolerance 0)")
     if bad[0] or bad[1] or bad[2]:
         raise SystemExit("page expansion differs on real flats")
-    for run, rows in calls.items():
-        what = "round" if run.startswith("16") else "frame"
-        # the first call of each staging buffer allocates (pins) it
-        print(f"upload {run}, per {what}, dense KB -> sent KB: "
-              + ", ".join(f"{r[0] / 1024:.0f} -> {r[1] / 1024:.0f}"
-                          for r in rows)
-              + f"; in all {sum(r[0] for r in rows)} -> "
-              f"{sum(r[1] for r in rows)} bytes; flats sent dense "
-              f"(dense_frames) {sum(r[2] for r in rows)}; stage (host) ms "
-              "per call: " + ", ".join(f"{r[3]:.3f}" for r in rows)
-              + f" [{card}]")
+    return calls, kept, bad
+
+
+def expansion_timings(dev, card, PG, kept):
+    """The kernel on each kept upload (CUDA events, median of 20; the
+    wrapper's host time and the launch alone on the device beside it)
+    against its plain version and one torch.index_select call on the same
+    pages, with its bound; returns what -> (ms, plain_ms, bound, by,
+    library_ms)."""
     rows = {}
     for what, (buf, flats, K, A) in kept.items():
         out = torch.empty(A * K * 512, dtype=torch.int16, device=dev)
@@ -1454,15 +1491,43 @@ def upload_phase(dev, card, PG, UP):
                          20, lambda: out)
         if not torch.equal(got, out):
             raise SystemExit(f"{what}: expand_pages != torch.index_select")
+        # the window's two shares: the wrapper's own host time, and the
+        # launch alone on the device
+        wrapper_ms = host_ms(lambda o: PG.expand_pages(o, buf, flats, K),
+                             lambda: out, 100)
+        kernel_ms = device_ms(lambda o: PG.expand_pages(o, buf, flats, K),
+                              lambda: out, 50, "expand_pages")
         nbytes = 16 * A + A * K * 1024 + sum(
             f.n * 1024 + (0 if f.map < 0 else 4 * K) for f in flats)
         b, by = bound(nbytes, 0)
         rows[what] = (ms, plain_ms, b, by, lib_ms)
         print(f"expand_pages {what} ({A} x {K} pages, "
-              f"{sum(f.n for f in flats)} sent): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms, bound "
-              f"{b:.5f} ms ({by}, {nbytes} bytes); equal to index_select "
-              f"[{card}]")
+              f"{sum(f.n for f in flats)} sent): kernel {ms:.4f} ms (the "
+              f"wrapper's host time {wrapper_ms:.4f} ms, the launch alone on "
+              f"the device {fmt_ms(kernel_ms)}), plain {plain_ms:.4f} ms, "
+              f"torch.index_select {lib_ms:.4f} ms, bound {b:.5f} ms ({by}, "
+              f"{nbytes} bytes); equal to index_select [{card}]")
+    return rows
+
+
+def upload_phase(dev, card, PG, UP):
+    """Phase 6: the upload of nc03, hd01, xl01 and 16 x nc03 (module
+    docstring).  Exits on a failed check; returns (ms, plain_ms, bound,
+    by, library_ms, max_abs_err) of hd01's keyframe."""
+    from cuda_vp9_torch.tools.profile_decode import stage_clock
+    calls, kept, bad = capture_uploads(PG, UP, UPLOAD_STREAMS)
+    for run, rows in calls.items():
+        what = "round" if run.startswith("16") else "frame"
+        # the first call of each staging buffer allocates (pins) it
+        print(f"upload {run}, per {what}, dense KB -> sent KB: "
+              + ", ".join(f"{r[0] / 1024:.0f} -> {r[1] / 1024:.0f}"
+                          for r in rows)
+              + f"; in all {sum(r[0] for r in rows)} -> "
+              f"{sum(r[1] for r in rows)} bytes; flats sent dense "
+              f"(dense_frames) {sum(r[2] for r in rows)}; stage (host) ms "
+              "per call: " + ", ".join(f"{r[3]:.3f}" for r in rows)
+              + f" [{card}]")
+    rows = expansion_timings(dev, card, PG, kept)
     spans = ("vp9.parse", "vp9.pack", "vp9.compact", "vp9.upload",
              "vp9.expand", "vp9.readback")
     frames = {name: n for name, n, _ in STREAMS}
@@ -1491,15 +1556,141 @@ def upload_phase(dev, card, PG, UP):
 
 
 @contextmanager
-def mc_build(_build, defines):
-    """MC's wrapper calls the library of mc.cu built with `defines`
-    while inside."""
-    own = _build.load("mc")
-    _build._libs["mc"] = _build.load("mc", defines)
+def lib_build(_build, name, defines):
+    """The wrappers call the library of csrc/<name>.cu built with
+    `defines` while inside."""
+    own = _build.load(name)
+    _build._libs[name] = _build.load(name, defines)
     try:
         yield
     finally:
-        _build._libs["mc"] = own
+        _build._libs[name] = own
+
+
+def lf_row_ms(dev, LF, mi_cols):
+    """Median ms of lf_frame on a random frame one SB row tall (mi grid 8 x
+    mi_cols, bd 10): no row waits on another."""
+    F, lfm, thr = rand_lf_inputs(np.random.default_rng(5), 8, mi_cols, 10)
+    a = (torch.from_numpy(lfm).to(dev), torch.from_numpy(thr).to(dev))
+
+    def fn(f):
+        LF.lf_frame(f, *a, 1, mi_rows=8, mi_cols=mi_cols, bd=10)
+    Fd = torch.from_numpy(F).to(dev)
+    fn(Fd.clone())
+    return cuda_ms(fn, 50, Fd.clone)
+
+
+def lf422_ms(dev, L4, F, maps, reps, want=None):
+    """Median ms of lf_chroma_422 on F (bd 10), each timed run held against
+    `want` when given."""
+    md = [torch.from_numpy(m).to(dev) for m in maps]
+    Fd = torch.from_numpy(F).to(dev)
+    bad = []
+
+    def held(f):
+        bad.append(not torch.equal(f, want))
+    L4.lf_chroma_422(Fd.clone(), *md, 1, bd=10)
+    ms = cuda_ms(lambda f: L4.lf_chroma_422(f, *md, 1, bd=10), reps,
+                 Fd.clone, held if want is not None else None)
+    if any(bad):
+        raise SystemExit(f"lf_chroma_422: {sum(bad)} of {reps} timed runs "
+                         "differ from the plain result")
+    return ms
+
+
+def lf422_timings(rng, dev, card, L4, _build, big, split=True):
+    """Phase 5: K7 on two 1088x960 planes (each timed run held against
+    phase 2's plain result) and on p1_04's 144x88, and the split of its
+    tile step: one tile row of 1 and of 30 tiles (no row waits) and the
+    1088x960 pair, each as it is (full), with both edge-bit maps zero
+    (loads, syncs and write-back only) and built without the write-back
+    (LF422_SPLIT_DEFINES); the hand-off share is what the pair takes
+    beyond N_STEPS full steps (split=False: without the third, for a
+    source that has no such build).  Returns (ms, plain_ms, bound, by) of
+    the pair."""
+    F, maps, plain_ms, want = big
+    ms = lf422_ms(dev, L4, F, maps, 20, want)
+    bound_, by = lf422_bound_ms(F, maps)
+    small = rand_422_inputs(rng, *LF422_SHAPES[0], 10)
+    s_ms = lf422_ms(dev, L4, *small, 20)
+    smd = [torch.from_numpy(m).to(dev) for m in small[1]]
+    s_plain_ms = cuda_ms(lambda f: L4.lf_chroma_422_plain(f, *smd, 1, bd=10),
+                         3, lambda: torch.from_numpy(small[0]).to(dev))
+    print(f"lf_chroma_422 1088x960 planes bd 10 median: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms (one run, phase 2), bound {bound_:.4f} "
+          f"ms ({by}); 20 of 20 timed runs equal the plain result; 144x88 "
+          f"planes: kernel {s_ms:.4f} ms, plain {s_plain_ms:.3f} ms [{card}]")
+    rows = [rand_422_inputs(np.random.default_rng(5), 8, c, 10)
+            for c in (8, 240)]
+    variants = (("full", (), False), ("edge bits 0", (), True),
+                ("no write-back", LF422_SPLIT_DEFINES, False))
+    for what, defines, zero in variants[:3 if split else 2]:
+        def t(F, maps):
+            if zero:
+                maps = [np.zeros_like(m) if i < 2 else m
+                        for i, m in enumerate(maps)]
+            with lib_build(_build, "loopfilter", defines):
+                return lf422_ms(dev, L4, F, maps, 50)
+        t1, t30 = (t(*x) for x in rows)
+        step = (t30 - t1) / 29
+        whole = t(F, maps)
+        print(f"lf_chroma_422 step split, {what}: one tile step "
+              f"{step * 1e3:.2f} us (64x32: {t1:.4f} ms, 64x960: {t30:.4f} "
+              f"ms); 1088x960: {whole:.4f} ms = {N_STEPS} steps "
+              f"{N_STEPS * step:.4f} ms + {whole - N_STEPS * step:.4f} ms of "
+              f"hand-offs and strip loads [{card}]")
+    return ms, plain_ms, bound_, by
+
+
+def baseline(tree: Path) -> int:
+    """python3 chip_smoke.py --baseline DIR: phase 5's timings of K1 (one
+    1920x1088 frame at bd 10, one SB step) and of K7 (the 1088x960 pair,
+    p1_04's planes, the step split as far as DIR's loopfilter.cu builds
+    it), and phase 6's of the page expansion (hd01's first two frames and
+    16 x nc03's first two rounds, each expansion held against its twin as
+    it runs), with the package of DIR, a checkout of another commit, in
+    place of this one: the same code times before and after in one call.
+    Prints no contract line."""
+    sys.path.insert(0, str(tree))
+    from cuda_vp9_torch.ops.cuda import _build
+    from cuda_vp9_torch.ops.cuda import lf422 as L4
+    from cuda_vp9_torch.ops.cuda import loopfilter as LF
+    from cuda_vp9_torch.ops.cuda import pages as PG
+    from cuda_vp9_torch.runtime import upload as UP
+
+    card = card_line()
+    dev = torch.device("cuda")
+    print(f"{card}\nbaseline: the package of {tree}")
+    split = LF422_SPLIT_DEFINES[0].split("=")[0] in (
+        _build.CSRC / "loopfilter.cu").read_text()
+    jobs = [("loopfilter", ()), ("pages", ())] + (
+        [("loopfilter", LF422_SPLIT_DEFINES)] if split else [])
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda j: _build.build(*j), jobs))
+    for k in ("loopfilter", "pages"):
+        for fn, line in ptxas_usage(_build.build_log.get(k, "")):
+            print(f"ptxas {k}.cu {fn}: {line}")
+    rng = np.random.default_rng(2026)
+    F, lfm, thr = rand_lf_inputs(rng, *LF_SHAPES[-1], 10)
+    a = (torch.from_numpy(lfm).to(dev), torch.from_numpy(thr).to(dev))
+    kw = dict(mi_rows=LF_SHAPES[-1][0], mi_cols=LF_SHAPES[-1][1], bd=10)
+    Fd = torch.from_numpy(F).to(dev)
+    LF.lf_frame(Fd.clone(), *a, 1, **kw)
+    ms = cuda_ms(lambda f: LF.lf_frame(f, *a, 1, **kw), 20, Fd.clone)
+    t1, t30 = lf_row_ms(dev, LF, 8), lf_row_ms(dev, LF, 240)
+    print(f"lf_frame 1920x1088 bd 10 median: kernel {ms:.4f} ms; one SB "
+          f"step {(t30 - t1) / 29 * 1e3:.2f} us [{card}]")
+    F, maps = rand_422_inputs(rng, *LF422_SHAPES[1], 10)
+    want = torch.from_numpy(F).to(dev)
+    L4.lf_chroma_422(want, *(torch.from_numpy(m).to(dev) for m in maps), 1,
+                     bd=10)
+    # the timed runs are held against the first (the plain run takes
+    # tens of seconds; phase 2 holds the kernel against it)
+    lf422_timings(rng, dev, card, L4, _build, (F, maps, float("nan"), want),
+                  split)
+    _, kept, _ = capture_uploads(PG, UP, [(KEYFRAME, 2)], 2)
+    expansion_timings(dev, card, PG, kept)
+    return 0
 
 
 def main() -> int:
@@ -1507,6 +1698,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--baseline"] and len(sys.argv) == 3:
+        return baseline(Path(sys.argv[2]).resolve())
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py [--baseline DIR]",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
     from cuda_vp9_torch.ops.cuda import _build
     from cuda_vp9_torch.ops.cuda import intra as IN
@@ -1530,7 +1727,8 @@ def main() -> int:
 
     # 1. build the sources, one nvcc each, in parallel
     t0 = time.perf_counter()
-    jobs = [(k, ()) for k in KERNELS] + [("mc", d) for d in MC_CAP_BUILDS]
+    jobs = [(k, ()) for k in KERNELS] + [("mc", d) for d in MC_CAP_BUILDS] \
+        + [("loopfilter", LF422_SPLIT_DEFINES)]
     with ThreadPoolExecutor(len(jobs)) as ex:
         list(ex.map(lambda j: _build.build(*j), jobs))
     LF._lib()
@@ -1602,7 +1800,7 @@ def main() -> int:
         l4_err = max(l4_err, err)
         if mi == LF422_SHAPES[1]:
             # one plain run of minutes is timed here, not repeated in 5
-            l4_big = (F, maps, plain_s * 1e3)
+            l4_big = (F, maps, plain_s * 1e3, Fp)
     Fo = torch.from_numpy(F).to(dev)
     before = L4.launches
     L4.lf_chroma_422(Fo, *md, 0, bd=10)
@@ -1799,51 +1997,15 @@ def main() -> int:
         print(f"lf_frame 1920x1088 bd {bd} median: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}); 20 of 20 "
               f"timed runs equal the plain result [{card}]")
-    F, maps, l4_plain_ms = l4_big
-    md = [torch.from_numpy(m).to(dev) for m in maps]
-    Fd = torch.from_numpy(F).to(dev)
-    L4.lf_chroma_422(Fd.clone(), *md, 1, bd=10)
-    l4_ms = cuda_ms(lambda f: L4.lf_chroma_422(f, *md, 1, bd=10), 20,
-                    Fd.clone)
-    l4_bound, l4_by = lf422_bound_ms(F, maps)
-    small = rand_422_inputs(rng, *LF422_SHAPES[0], 10)
-    smd = [torch.from_numpy(m).to(dev) for m in small[1]]
-    s_plain_ms = cuda_ms(lambda f: L4.lf_chroma_422_plain(f, *smd, 1, bd=10),
-                         3, lambda: torch.from_numpy(small[0]).to(dev))
-    s_ms = cuda_ms(lambda f: L4.lf_chroma_422(f, *smd, 1, bd=10), 20,
-                   lambda: torch.from_numpy(small[0]).to(dev))
     # the serial floor: a frame one SB row tall has no waits, so one SB
-    # step is (t(30 SBs) - t(1 SB)) / 29; the critical path of a
-    # 1920x1088 frame is sb_cols + sb_rows - 1 = 46 steps (the kernels
-    # hand off in half steps: csrc/loopfilter.cu)
-    def row_ms(mi_cols, chroma):
-        if chroma:
-            F, maps = rand_422_inputs(rng, 8, mi_cols, 10)
-            md = [torch.from_numpy(m).to(dev) for m in maps]
-
-            def fn(f):
-                L4.lf_chroma_422(f, *md, 1, bd=10)
-        else:
-            F, lfm, thr = rand_lf_inputs(rng, 8, mi_cols, 10)
-            a = (torch.from_numpy(lfm).to(dev), torch.from_numpy(thr).to(dev))
-
-            def fn(f):
-                LF.lf_frame(f, *a, 1, mi_rows=8, mi_cols=mi_cols, bd=10)
-        Fd = torch.from_numpy(F).to(dev)
-        fn(Fd.clone())
-        return cuda_ms(fn, 50, Fd.clone)
-
-    n_steps = LF_SHAPES[-1][1] // 8 + (LF_SHAPES[-1][0] + 7) // 8 - 1
-    for name, chroma in (("lf_frame", False), ("lf_chroma_422", True)):
-        t1, t30 = row_ms(8, chroma), row_ms(240, chroma)
-        step = (t30 - t1) / 29
-        print(f"{name} one SB step {step * 1e3:.2f} us (64x64: {t1:.4f} ms, "
-              f"64x1920: {t30:.4f} ms); critical path at 1920x1088: "
-              f"{n_steps} steps = {n_steps * step:.4f} ms [{card}]")
-    print(f"lf_chroma_422 1088x960 planes bd 10 median: kernel {l4_ms:.3f} "
-          f"ms, plain {l4_plain_ms:.3f} ms (one run, phase 2), bound "
-          f"{l4_bound:.4f} ms ({l4_by}); 144x88 planes: kernel {s_ms:.3f} ms, "
-          f"plain {s_plain_ms:.3f} ms [{card}]")
+    # step is (t(30 SBs) - t(1 SB)) / 29
+    t1 = lf_row_ms(dev, LF, 8)
+    t30 = lf_row_ms(dev, LF, 240)
+    step = (t30 - t1) / 29
+    print(f"lf_frame one SB step {step * 1e3:.2f} us (64x64: {t1:.4f} ms, "
+          f"64x1920: {t30:.4f} ms); critical path at 1920x1088: "
+          f"{N_STEPS} steps = {N_STEPS * step:.4f} ms [{card}]")
+    l4_row = lf422_timings(rng, dev, card, L4, _build, l4_big)
     pf, pm, pc = probe_tool.probe_inputs()
     pf_d, pm_d = torch.from_numpy(pf).to(dev), torch.from_numpy(pm).to(dev)
     pc_t = torch.from_numpy(pc)
@@ -1912,8 +2074,8 @@ def main() -> int:
          "source": "cuda_vp9_torch/csrc/loopfilter.cu",
          "replaces": "cuda_vp9_tpu/ops/device/lf_wave.py:180",
          "launches": l4_launches, "max_abs_err": l4_err,
-         "ms": l4_ms, "plain_ms": l4_plain_ms, "bound_ms": l4_bound,
-         "bound_by": l4_by, "library_ms": None},
+         "ms": l4_row[0], "plain_ms": l4_row[1], "bound_ms": l4_row[2],
+         "bound_by": l4_row[3], "library_ms": None},
         {"name": "tile_probe", "route": "cuda",
          "source": "cuda_vp9_torch/csrc/tileprobe.cu",
          "replaces": "tools/profiling/pallas_probe.py:110",

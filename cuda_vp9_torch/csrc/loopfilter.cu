@@ -47,8 +47,7 @@
 // 1920x1088), where whole-tile hand-offs would make it cols + 2 (rows - 1)
 // (62).  One condition: the vertical pass of (r, c) writes its left strip
 // back before it publishes, because the horizontal pass of (r+1, c-1)
-// changes those pixels next; the horizontal pass of (r, c) then writes
-// back only the tile's own columns.
+// changes those pixels next.
 //
 // Schedule.  One launch per call, 128 threads a block.  A block claims
 // the next tile row with an atomic ticket and walks it left to right;
@@ -59,36 +58,64 @@
 // block only ever waits on a row claimed before its own (ticket t - 1),
 // by a block that is already running, so the walk cannot deadlock,
 // whatever order the blocks become resident in.  Passes in flight at the
-// same time touch disjoint pixels.  Each pass stages what it reads in
-// shared memory (a pixel outside its plane reads 0: the Pallas kernel's
-// 8-pixel zero apron), runs its chains there, and writes back the pixels
-// a chain may have changed (window positions 1..14) that lie in the
-// plane.  The ticket and the progress flags live in an int32 workspace
-// [1 + frames * rows] that the wrapper allocates and the entry point
-// zeroes on the stream before the launch.
+// same time touch disjoint pixels.  A pixel outside its plane reads 0
+// (the Pallas kernel's 8-pixel zero apron), and only pixels that a chain
+// may have changed (window positions 1..14) and that lie in the plane are
+// written back.  The ticket and the progress flags (2 c + 1 once tile
+// (r, c) has run its vertical pass, 2 c + 2 once it has run both) live in
+// an int32 workspace [1 + frames * rows] that the wrapper allocates and
+// the entry point zeroes on the stream before the launch.
+//
+// K1's step (walk_rows, FrameTile) stages each pass's window from global
+// memory into shared memory, runs its chains there, writes the changed
+// pixels back and publishes after each pass.  K7's step keeps the
+// loads, most stores and half its block off the critical path (lf_422_kernel):
+//   - a tile's own 64 x 32 pixels and its map cells are fetched a step
+//     early, with cp.async into the other of two shared buffers: nobody
+//     changes them before the tile's vertical pass (row r-1 stops at row
+//     64 r - 1, row r+1 starts after this row has published tile c + 1);
+//   - its left strip is the last tile's right 8 columns, carried from
+//     shared memory, not reloaded: no other block touches them before
+//     the next vertical pass;
+//   - only the top strip is read from global memory after the wait;
+//   - one release a step, after the vertical pass: a row waits for
+//     2 c + 3 or for the end of the row, never for 2 c + 2.  Before it
+//     goes only what the horizontal pass of (r+1, c-1) reads, the bottom
+//     8 rows of tile c-1 (512 pixels).  A thread of warp 2 makes it, so
+//     warps 0-1 go on to the wait and the top strip without waiting for
+//     its fence (they meet on a barrier of their own, barrier 1);
+//   - during the horizontal pass, which has work for warps 0-1 only,
+//     warps 2-3 (one a plane) write the rest of tile c-1 back (its rows
+//     above the bottom 8, which row r+1 changes next) and start the
+//     fetch of tile c + 1 into that buffer.
+// Every window sees exactly the pixels of the normative order: the copies
+// hold the same values as the plane would.
 //
 // What bounds it on this card: the serial critical path of tile steps of
 // one frame (cols + rows - 1 steps), each two passes of dependent chains
-// in shared memory with a staged load and a store around each; not bytes
-// (a 1080p frame is 12 MB of int32 pixels, 7.6 us at the memory rate).
-// One frame runs one block per SB row, so a small frame leaves most of
-// the 132 SMs idle (a 640x384 frame: 6 blocks).  The stream axis fills
-// them: the rows of all N frames are in flight at once, and N frames
-// cost about one frame's critical path while all their rows are
+// in shared memory (K1: with a staged load and a store around each); not
+// bytes (a 1080p frame is 12 MB of int32 pixels, 7.6 us at the memory
+// rate).  One frame runs one block per SB row, so a small frame leaves
+// most of the 132 SMs idle (a 640x384 frame: 6 blocks).  The stream axis
+// fills them: the rows of all N frames are in flight at once, and N
+// frames cost about one frame's critical path while all their rows are
 // resident.  Residency is bounded by registers: 242 per thread at 128
 // threads (ptxas -v) allow 2 blocks per SM, 264 on the card, so every
 // row of 16 640x384 frames (96 blocks) is resident at once.  Measured by
 // chip_smoke.py on an NVIDIA H100 80GB HBM3 at its 700 W power limit:
 // K1 0.714 ms per 1920x1088 frame at bd 10, one SB step 13.2 us (so the
 // 46-step path is 0.607 ms); 16 640x384 frames in one launch 0.260 ms,
-// against 3.564 ms for 16 launches; K7 0.558 ms for two 1088x960 planes,
-// one tile step 10.3 us.
+// against 3.564 ms for 16 launches; K7 0.338-0.372 ms for two 1088x960
+// planes at bd 10, one tile step 5.8-6.3 us, of which about 2 us is not
+// the edge chains (the design before: 0.539-0.571 ms and 10.2-11.0 us,
+// about 5.7 us not the chains, timed in the same runs).
 //
 // Frame layout: F is int32 [3, ha, wa] contiguous (K1: [N, 3, ha, wa]),
 // ha and wa multiples of 64.  For K1, U and V occupy the top-left
 // [ha/2, wa/2] of their planes; for K7, the left [ha, wa/2].  A cell
 // whose bits are 0 reads nothing.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -219,7 +246,13 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-// The row walker of the header, over `frames` frames of rows x cols
+// Barrier 1 of warps 0-1 alone (64 threads): K7's horizontal pass, which
+// warps 2-3 do not join.
+__device__ __forceinline__ void sync_warps01() {
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+// K1's row walker of the header, over `frames` frames of rows x cols
 // tiles.  ws[0] is the ticket, ws[1 + k rows + r] the progress of row r
 // of frame k in half steps: 2 c + 1 once tile (r, c) has run its
 // vertical pass, 2 c + 2 once it has run both.  tile.enter(k) selects
@@ -371,7 +404,7 @@ struct LfmMeta {
   }
 };
 
-// K7's metadata: chain k's cell c0 + k step of a tile's staged maps
+// K7's metadata: chain k's cell c0 + k step of a tile's shared maps
 // (32 cells each, 4 to a row).
 struct MapMeta {
   const int *bits, *mb, *lm, *hv;
@@ -491,63 +524,6 @@ struct FrameTile {
   }
 };
 
-// K7: tile (r, c), 64 rows by 32 columns, of both 4:2:2 chroma planes.
-struct ChromaTile {
-  Plane u, v;
-  const int16_t* maps[5];  // vbits, hbits, mb, lm, hv: [h / 8, mcols]
-  int mcols, sh, bd;
-  int *su, *sv;  // shared: 72 x CS per plane
-  int* sm;       // shared: the tile's 8 x 4 cells of the five maps
-
-  __device__ void enter(int) {}  // one frame
-
-  __device__ void vertical(int r, int c) const {
-    const int t = threadIdx.x;
-    Staged<64, 40> a, b;
-    a.load(u, r * 64, c * 32 - 8);
-    b.load(v, r * 64, c * 32 - 8);
-    int m[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // entry i: map i / 32, cell i % 32
-      const int i = t + j * kThreads;
-      const int cell = i & 31;
-      m[j] = i < 160 ? __ldg(maps[i >> 5] + (r * 8 + (cell >> 2)) * mcols +
-                             c * 4 + (cell & 3))
-                     : 0;
-    }
-    a.store(su + 8 * CS, CS);
-    b.store(sv + 8 * CS, CS);
-    sm[t] = m[0];
-    if (t < 32) sm[128 + t] = m[1];
-    __syncthreads();
-    // 64 row lanes per plane, windows at columns 8 k, k < 4
-    const int y = t & 63;
-    run_lane((t < 64 ? su : sv) + (8 + y) * CS, 1, 4, bd,
-             MapMeta{sm, sm + 64, sm + 96, sm + 128, (y >> 3) * 4, 1, sh});
-    __syncthreads();
-    unstage<64, 7>(su + 8 * CS + 1, CS, u, r * 64, c * 32 - 7);
-    unstage<64, 7>(sv + 8 * CS + 1, CS, v, r * 64, c * 32 - 7);
-  }
-
-  __device__ void horizontal(int r, int c) const {
-    const int t = threadIdx.x;
-    Staged<8, 32> a, b;
-    a.load(u, r * 64 - 8, c * 32);
-    b.load(v, r * 64 - 8, c * 32);
-    a.store(su + 8, CS);
-    b.store(sv + 8, CS);
-    __syncthreads();
-    if (t < 64) {  // 32 column lanes per plane, windows at rows 8 k, k < 8
-      const int x = t & 31;
-      run_lane((t < 32 ? su : sv) + 8 + x, CS, 8, bd,
-               MapMeta{sm + 32, sm + 64, sm + 96, sm + 128, x >> 3, 4, sh});
-    }
-    __syncthreads();
-    unstage<71, 32>(su + CS + 8, CS, u, r * 64 - 7, c * 32);
-    unstage<71, 32>(sv + CS + 8, CS, v, r * 64 - 7, c * 32);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads)
 lf_frame_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
                 long long lfm_stride, const int16_t* __restrict__ thr,
@@ -563,19 +539,207 @@ lf_frame_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
   walk_rows(ws, n_active, ha / 64, wa / 64, tile);
 }
 
+// ------------------------------------------------------------ K7
+
+// One plane's shared tile of K7: 72 rows of CS, the top strip (rows 0..7)
+// and the tile's 64 rows; in each, the left strip (columns 0..7) and the
+// tile's 32 columns (8..39).
+constexpr int kTile422 = 72 * CS;
+
+// K7's planes and maps, and the copies of a tile into shared memory.
+struct Chroma422 {
+  Plane pl[2];             // U, V: the left [ha, wa / 2] of planes 1, 2
+  const int16_t* maps[5];  // vbits, hbits, mb, lm, hv: [h / 8, mcols]
+  int mcols;
+
+  // Starts the asynchronous copies of plane p's part of tile (r, c), its
+  // own 64 x 32 pixels, into the plane's shared tile s (rows 8..,
+  // columns 8..): column x, rows y0, y0 + dy, ...
+  __device__ void fetch(int* s, int r, int c, int p, int x, int y0,
+                        int dy) const {
+    const int rs = pl[p].rs;
+    const int32_t* g = pl[p].p + static_cast<size_t>(r * 64) * rs + c * 32 + x;
+    int* d = s + 8 * CS + 8 + x;
+#pragma unroll 8
+    for (int y = y0; y < 64; y += dy)
+      __pipeline_memcpy_async(d + y * CS, g + static_cast<size_t>(y) * rs,
+                              sizeof(int));
+    __pipeline_commit();
+  }
+
+  // Map entry i of tile (r, c): map i / 32, cell i % 32 (4 to a row).
+  __device__ int cell(int r, int c, int i) const {
+    const int k = i & 31;
+    return __ldg(maps[i >> 5] + (r * 8 + (k >> 2)) * mcols + c * 4 + (k & 3));
+  }
+
+  // Writes pixel (y, x) of tile row r's shared tiles (y = 0 is 8 rows
+  // above the tile row; x = 0 is column c0 of the plane) to plane p,
+  // unless it lies above the plane.
+  __device__ void put(int p, int r, int c0, int y, int x, int v) const {
+    const int gy = r * 64 - 8 + y;
+    if (gy >= 0)
+      __stcg(pl[p].p + static_cast<size_t>(gy) * pl[p].rs + c0 + x, v);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
               const int16_t* __restrict__ hb, const int16_t* __restrict__ mb,
               const int16_t* __restrict__ lm, const int16_t* __restrict__ hv,
               int* ws, int ha, int wa, int bd) {
-  __shared__ int su[72 * CS];
-  __shared__ int sv[72 * CS];
-  __shared__ int sm[160];
+  __shared__ int st[2][2 * kTile422];  // [buffer][plane * kTile422 + ...]
+  __shared__ int sm[2][160];           // [buffer]: the tile's map cells
+  __shared__ int s_ticket;
   const size_t n = static_cast<size_t>(ha) * wa;
-  const int wc = wa / 2;
-  ChromaTile tile{{F + n, wa, ha, wc}, {F + 2 * n, wa, ha, wc},
-                  {vb, hb, mb, lm, hv}, wc / 8, bd - 8, bd, su, sv, sm};
-  walk_rows(ws, 1, ha / 64, wc / 32, tile);
+  const int wc = wa / 2, rows = ha / 64, cols = wc / 32, sh = bd - 8;
+  const Chroma422 K{{{F + n, wa, ha, wc}, {F + 2 * n, wa, ha, wc}},
+                    {vb, hb, mb, lm, hv}, wc / 8};
+  const int t = threadIdx.x;
+  int* const progress = ws + 1;
+  for (;;) {
+    __syncthreads();  // every thread has read s_ticket and is done with
+                      // the last row's shared state
+    if (t == 0) s_ticket = atomicAdd(ws, 1);
+    __syncthreads();
+    const int r = s_ticket;
+    if (r >= rows) return;
+    // tile 0: its pixels and maps, and its left strip, left of the planes
+    K.fetch(st[0] + (t >> 6) * kTile422, r, 0, t >> 6, t & 31,
+            (t >> 5) & 1, 2);
+    for (int i = t; i < 160; i += kThreads) sm[0][i] = K.cell(r, 0, i);
+    for (int i = t; i < 2 * 64 * 8; i += kThreads)
+      st[0][(i >> 9) * kTile422 + (8 + ((i >> 3) & 63)) * CS + (i & 7)] = 0;
+    int m[3];  // warps 2-3: the next tile's map entries t - 64 + 64 j
+    for (int c = 0; c < cols; ++c) {
+      int* const s = st[c & 1];          // tile c
+      int* const o = st[(c & 1) ^ 1];    // tile c-1, then c+1
+      const int* const cm = sm[c & 1];
+      __pipeline_wait_prior(0);
+      __syncthreads();  // tile c in s: pixels, left strip, maps
+      {  // vertical pass: 64 row lanes a plane, windows at columns 8 k
+        const int y = t & 63;
+        run_lane(s + (t >> 6) * kTile422 + (8 + y) * CS, 1, 4, bd,
+                 MapMeta{cm, cm + 64, cm + 96, cm + 128, (y >> 3) * 4, 1,
+                         sh});
+      }
+      __syncthreads();
+#ifndef VP9_LF422_NO_WRITEBACK
+      // what the horizontal pass of (r+1, c-1) reads: the bottom 8 rows of
+      // tile c-1, its columns 25..31 as this vertical pass left them (the
+      // left strip, s), the others as its horizontal pass did (o)
+      if (c > 0) {
+        for (int i = t; i < 2 * 8 * 32; i += kThreads) {
+          const int p = i >> 8, y = 64 + ((i >> 5) & 7), x = i & 31;
+          const int* q = (x < 25 ? o + 8 : s - 24) + p * kTile422 + y * CS;
+          K.put(p, r, (c - 1) * 32, y, x, q[x]);
+        }
+      }
+#endif
+      // every thread's stores come before the release
+      __syncthreads();
+      if (t < 64) {
+        if (t == 0 && r > 0) {
+          // the top strip is final once row r-1 has run tile c and the
+          // vertical pass of tile c + 1; a wait of seconds is a fault,
+          // and the launch fails rather than hangs
+          const int need = c + 1 < cols ? 2 * c + 3 : 2 * cols;
+          for (int spins = 0; ld_acquire(progress + r - 1) < need; ++spins) {
+            if (spins == kMaxSpins) __trap();
+            __nanosleep(32);
+          }
+        }
+        sync_warps01();  // warps 0-1 read row r-1's pixels only after the
+                         // acquire
+        // the top strip, 8 rows above the tile's own columns (0 above the
+        // planes), through L2: row r-1 wrote it
+        int v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // [plane][row][col]: 2 x 8 x 32
+          const int i = t + j * 64;
+          const int p = i >> 8, y = (i >> 5) & 7, x = i & 31;
+          v[j] = r > 0 ? __ldcg(K.pl[p].p +
+                                static_cast<size_t>(r * 64 - 8 + y) *
+                                    K.pl[p].rs +
+                                c * 32 + x)
+                       : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = t + j * 64;
+          s[(i >> 8) * kTile422 + ((i >> 5) & 7) * CS + 8 + (i & 31)] = v[j];
+        }
+        sync_warps01();
+        // horizontal pass: 32 column lanes a plane, windows at rows 8 k
+        const int x = t & 31;
+        run_lane(s + (t >> 5) * kTile422 + 8 + x, CS, 8, bd,
+                 MapMeta{cm + 32, cm + 64, cm + 96, cm + 128, x >> 3, 4, sh});
+      } else {
+        // warps 2-3 publish: the barrier above put every thread's stores
+        // before this release, which warps 0-1 need not wait for
+        if (t == 64) st_release(progress + r, 2 * c + 1);
+        // warps 2-3 (U, V): the rest of tile c-1 goes back to the plane
+        // (rows 56..63 went before the release, and row r+1 changes them
+        // next), then its buffer takes tile c + 1
+        const int p = (t >> 5) - 2, lane = t & 31;
+#ifndef VP9_LF422_NO_WRITEBACK
+        if (c > 0) {  // column `lane` of tile c-1: rows 1..7 as its
+                      // horizontal pass left them, rows 8..63 as this
+                      // vertical pass did where it changed them
+          const int rs = K.pl[p].rs;
+          const int* q = o + p * kTile422 + 8 + lane;
+          const int* e = lane < 25 ? q : s + p * kTile422 + lane - 24;
+          int32_t* g = K.pl[p].p + static_cast<size_t>(r * 64) * rs +
+                       (c - 1) * 32 + lane;  // the tile row's first row
+          if (r > 0) {
+#pragma unroll
+            for (int y = 1; y < 8; ++y)
+              __stcg(g - static_cast<size_t>(8 - y) * rs, q[y * CS]);
+          }
+#pragma unroll 8
+          for (int y = 8; y < 64; ++y)
+            __stcg(g + static_cast<size_t>(y - 8) * rs, e[y * CS]);
+        }
+#endif
+        __syncwarp();  // the warp has read its plane of o
+        if (c + 1 < cols) {
+          K.fetch(o + p * kTile422, r, c + 1, p, lane, 0, 1);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const int i = t - 64 + 64 * j;
+            m[j] = i < 160 ? K.cell(r, c + 1, i) : 0;
+          }
+        }
+      }
+      __syncthreads();
+      if (c + 1 < cols) {
+        // the tile's right 8 columns are the next tile's left strip: no
+        // other block touches them before the next vertical pass
+        for (int i = t; i < 2 * 64 * 8; i += kThreads) {
+          const int q = (i >> 9) * kTile422 + (8 + ((i >> 3) & 63)) * CS +
+                        (i & 7);
+          o[q] = s[q + 32];
+        }
+        if (t >= 64) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const int i = t - 64 + 64 * j;
+            if (i < 160) sm[(c & 1) ^ 1][i] = m[j];
+          }
+        }
+      } else {
+#ifndef VP9_LF422_NO_WRITEBACK
+        // the last tile goes back whole: rows 1..71 of its columns
+        for (int i = t; i < 2 * 71 * 32; i += kThreads) {
+          const int p = i / 2272, y = 1 + (i % 2272) / 32, x = i & 31;
+          K.put(p, r, c * 32, y, x, s[p * kTile422 + y * CS + 8 + x]);
+        }
+#endif
+        __syncthreads();  // every thread's stores come before the release
+        if (t == 0) st_release(progress + r, 2 * cols);
+      }
+    }
+  }
 }
 
 }  // namespace

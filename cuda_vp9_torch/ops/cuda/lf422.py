@@ -10,8 +10,8 @@ to right, then the horizontal ones top to bottom.  The five per-cell maps
 come straight from the wire; the thresholds are scaled by bd - 8 inside.
 
 On a CUDA frame it launches `vp9_lf_plane_tiles` of `csrc/loopfilter.cu`
-(one persistent launch on the row walker of the whole-frame kernel) or
-raises; on a CPU frame it runs `lf_chroma_422_plain`, which filters each
+(one persistent launch, a block a tile row, each tile fetched a step
+early) or raises; on a CPU frame it runs `lf_chroma_422_plain`, which filters each
 plane with `ops/device/lf_wave.lf_plane_tiles`.  `launches` counts the
 kernel launches and `plain_calls` the calls of the plain version, apart
 from the counts of `ops/cuda/loopfilter.py`.

@@ -43,13 +43,13 @@ at 32,767 nonzero pages, and the wire has no zero page and no padding.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..native import compact_pages
-from ..ops.cuda.pages import (PAGE, PAGE_BYTES, TABLE_BYTES, Flat,
+from ..ops.cuda.pages import (PAGE, PAGE_BYTES, TABLE_BYTES, Flat, Table,
                               expand_pages)
 
 
@@ -59,12 +59,12 @@ def _align16(n: int) -> int:
 
 class Staged(NamedTuple):
     """One call's upload in staging buffer `turn`: its first `nbytes`
-    bytes, the flats' table in host ints, their page count, and the byte
-    offset and length of the int16 aux (0 when there is none)."""
+    bytes, the flats' table in host ints (checked once, here; with their
+    page count, `flats.n_pages`), and the byte offset and length of the
+    int16 aux (0 when there is none)."""
     turn: int
     nbytes: int
-    flats: List[Flat]
-    n_pages: int
+    flats: Table
     aux: int
     n_aux: int
 
@@ -134,12 +134,12 @@ class Uploader:
             else:
                 table.append(Flat(cur, cur + map_bytes, n))
                 cur += map_bytes + n * PAGE_BYTES
-        buf[:TABLE_BYTES * A].view(np.int64)[:] = [
-            v for f in table for v in (f.map, f.pages)]
+        table = Table(table, K, cur)
+        buf[:TABLE_BYTES * A].view(np.int64)[:] = table.words
         self.frames += A
         self.flat_bytes += A * K * PAGE_BYTES
         self.sent_bytes += cur
-        return Staged(turn, cur, table, K, TABLE_BYTES * A if n_aux else 0,
+        return Staged(turn, cur, table, TABLE_BYTES * A if n_aux else 0,
                       n_aux)
 
     def send(self, st: Staged):
@@ -162,11 +162,12 @@ class Uploader:
         """The flats rebuilt on the device from buf (`send`'s), one
         `expand_pages` call: [A, nflat] int16, valid until the next
         call's expansion."""
-        A, n = len(st.flats), len(st.flats) * st.n_pages * PAGE
+        A, K = len(st.flats), st.flats.n_pages
+        n = A * K * PAGE
         if self._out is None or self._out.numel() < n:
             self._out = torch.empty(n, dtype=torch.int16, device=self.device)
-        out = self._out[:n].view(A, st.n_pages * PAGE)
-        return expand_pages(out, buf, st.flats, st.n_pages)
+        out = self._out[:n].view(A, K * PAGE)
+        return expand_pages(out, buf, st.flats, K)
 
     @staticmethod
     def aux(st: Staged, buf):

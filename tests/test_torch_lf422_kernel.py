@@ -11,8 +11,10 @@ plane at a time), on the card through the kernel `vp9_lf_plane_tiles` of
     returns for each plane;
   * on the card (marked `cuda`; skips without a device): the kernel
     against `lf_plane_tiles` at bit depths 8, 10 and 12 on p1_04's chroma
-    (144x88 in a 192x96 canvas) and on a ragged canvas, at bit depth 10 on
-    1088x960 planes, ten runs of one input, and `lf_on = 0`.
+    (144x88 in a 192x96 canvas), on a ragged canvas and on 1088x960
+    planes, on a single tile row (64x320) and a single tile column
+    (640x32), with every edge bit set in every cell and with none, ten
+    runs of one input, and `lf_on = 0`.
 
 This file imports no JAX and nothing of `cuda_vp9_tpu`, so on the card's
 machine it runs with `python -m pytest --noconftest -m cuda
@@ -36,8 +38,10 @@ from cuda_vp9_torch.ops.ref.loopfilter import make_thresholds
 torch.set_num_threads(1)
 
 # mi grids: p1_04's 176x144 (chroma 88x144 in a 96x192 canvas), a ragged
-# canvas, and 1920x1088 (chroma 960x1088)
+# canvas, 1920x1088 (chroma 960x1088), one tile row (chroma 320x64) and
+# one tile column (chroma 32x640)
 P1_04, RAGGED, HD = (18, 22), (13, 27), (135, 240)
+ROW, COLUMN = (8, 80), (80, 8)
 
 
 def _inputs(rng, mi_rows, mi_cols, bd):
@@ -128,7 +132,8 @@ def _kernel(F, maps, bd, dev, lf_on=1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bd,mi", [(8, P1_04), (10, P1_04), (12, P1_04),
                                    (8, RAGGED), (10, RAGGED), (12, RAGGED),
-                                   (10, HD)])
+                                   (10, HD), (8, HD), (12, HD), (10, ROW),
+                                   (12, COLUMN)])
 def test_kernel_matches_plain_on_card(bd, mi):
     dev = _cuda()
     F, maps = _inputs(np.random.default_rng(bd * 1000 + mi[1]), *mi, bd)
@@ -140,6 +145,23 @@ def test_kernel_matches_plain_on_card(bd, mi):
         assert (want != F[p, :, :wc]).any()
         assert np.array_equal(got[p, :, :wc], want)
         assert np.array_equal(got[p, :, wc:], F[p, :, wc:])
+    assert np.array_equal(got[0], F[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [15, 0])
+def test_kernel_every_or_no_edge_on_card(bits):
+    """Every edge bit set in every cell of both bit maps (the planes'
+    borders included: the kernel reads 0 beyond them, as the twin's apron
+    does), and none: the planes come back untouched."""
+    dev = _cuda()
+    F, maps = _inputs(np.random.default_rng(40 + bits), 24, 40, 10)
+    maps[0][:] = maps[1][:] = bits
+    got = _kernel(F, maps, 10, dev)
+    wc = F.shape[2] // 2
+    for p, want in zip((1, 2), _plain_planes(F, maps, 10)):
+        assert (want != F[p, :, :wc]).any() == bool(bits)
+        assert np.array_equal(got[p, :, :wc], want)
     assert np.array_equal(got[0], F[0])
 
 

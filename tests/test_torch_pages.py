@@ -24,14 +24,22 @@ page expansion (ops/cuda/pages.py, csrc/pages.cu).
   * a CUDA tensor never takes the twin: with the loader and the C call
     stubbed, one call for the flats of a call, the counters, and the
     checks on alignment and on the table;
+  * the table the kernel takes from the host (stubbed call) equals the
+    table at the head of the upload, on a round of dense, compacted and
+    empty flats; a round of more flats than a launch takes (MAX_FLATS)
+    makes one call per MAX_FLATS flats, each counted, and the twin
+    rebuilds it;
   * on the card (marked `cuda`; skips without a device): the kernel
     against `expand_pages_plain` on a round that mixes dense, compacted
-    and all-zero flats, one launch.
+    and all-zero flats, one launch; on a 16-flat round whose runs of
+    zero and nonzero pages cross the flats' boundaries and the kernel's
+    runs of pages; and on a round past MAX_FLATS, two launches.
 
 This file imports JAX only inside the test that needs it, so on the
 card's machine it runs with `python -m pytest --noconftest -m cuda
 tests/test_torch_pages.py`.  Tolerance 0: integer data."""
 
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -278,7 +286,8 @@ class _OnCuda:
         return getattr(self._t, name)
 
 
-def test_cuda_tensor_never_takes_the_twin(monkeypatch):
+def _stub_call(monkeypatch):
+    """The C call stubbed: returns the list of its argument tuples."""
     calls = []
 
     def fake_call(fn, device, *args):
@@ -287,12 +296,17 @@ def test_cuda_tensor_never_takes_the_twin(monkeypatch):
 
     monkeypatch.setattr(K, "_lib", lambda: "vp9_expand_pages")
     monkeypatch.setattr(_build, "call", fake_call)
+    return calls
+
+
+def test_cuda_tensor_never_takes_the_twin(monkeypatch):
+    calls = _stub_call(monkeypatch)
     st = U.Uploader("cpu").stage([np.zeros(8 * PAGE, np.int16)] * 2)
     buf = torch.zeros(st.nbytes, dtype=torch.uint8)
     out = torch.zeros(2 * 8 * PAGE, dtype=torch.int16)
     counts = (K.launches, K.pages, K.plain_calls)
     K.expand_pages(_OnCuda(out), _OnCuda(buf), st.flats, 8)
-    assert calls == [(buf.data_ptr(), 2, 8, out.data_ptr())]
+    assert calls == [(buf.data_ptr(), st.flats.addr, 2, 8, out.data_ptr())]
     assert (K.launches, K.pages, K.plain_calls) == (
         counts[0] + 1, counts[1] + 16, counts[2])
     with pytest.raises(ValueError):     # out off a 16-byte boundary
@@ -305,6 +319,63 @@ def test_cuda_tensor_never_takes_the_twin(monkeypatch):
         K.expand_pages(_OnCuda(out), _OnCuda(buf),
                        [st.flats[0], K.Flat(-1, st.flats[1].map, 7)], 8)
     assert len(calls) == 1
+
+
+def _mixed_round(rng, n_flats, n_pages):
+    """n_flats flats of n_pages pages: in turn compacted, dense and all
+    zero, the compacted ones with runs of nonzero pages that start and end
+    anywhere, across the kernel's runs of pages."""
+    flats = []
+    for k in range(n_flats):
+        f = np.zeros(n_pages * PAGE, np.int16)
+        if k % 3 == 1:
+            f[:] = rng.integers(1, 99, f.size)
+        elif k % 3 == 0:
+            p = f.reshape(n_pages, PAGE)
+            for a in rng.integers(0, n_pages, 3):
+                p[a:a + int(rng.integers(1, 20))] = rng.integers(
+                    -9, 9, PAGE) | 1
+        flats.append(f)
+    return flats
+
+
+def test_kernel_table_equals_upload_head(monkeypatch):
+    calls = _stub_call(monkeypatch)
+    flats = _mixed_round(np.random.default_rng(11), 5, 300)
+    up = U.Uploader("cpu")
+    st = up.stage(flats, np.arange(3, dtype=np.int16))
+    assert [f.map < 0 for f in st.flats] == [False, True, False, False, True]
+    assert st.flats[2].n == 0 < st.flats[0].n
+    buf = up.send(st)
+    out = torch.empty(5 * 300 * PAGE, dtype=torch.int16)
+    K.expand_pages(_OnCuda(out), _OnCuda(buf), st.flats, 300)
+    (b, addr, a, n_pages, o), = calls
+    host = np.ctypeslib.as_array((ctypes.c_int64 * (2 * a)).from_address(
+        addr))
+    assert (b, a, n_pages, o) == (buf.data_ptr(), 5, 300, out.data_ptr())
+    assert np.array_equal(host, buf[:K.TABLE_BYTES * 5].view(
+        torch.int64).numpy())
+    assert host.tolist() == [v for f in st.flats for v in (f.map, f.pages)]
+
+
+def test_round_past_max_flats_splits_launches(monkeypatch):
+    n, n_pages = K.MAX_FLATS + 6, 37
+    flats = _mixed_round(np.random.default_rng(12), n, n_pages)
+    up = U.Uploader("cpu")
+    st = up.stage(flats)
+    buf = up.send(st)
+    got = up.expand(st, buf)
+    assert np.array_equal(got.numpy(), np.stack(flats))
+    calls = _stub_call(monkeypatch)
+    out = torch.empty(n * n_pages * PAGE, dtype=torch.int16)
+    counts = (K.launches, K.pages, K.plain_calls)
+    K.expand_pages(_OnCuda(out), _OnCuda(buf), st.flats, n_pages)
+    m, o, step = K.MAX_FLATS, out.data_ptr(), n_pages * K.PAGE_BYTES
+    assert calls == [(buf.data_ptr(), st.flats.addr, m, n_pages, o),
+                     (buf.data_ptr(), st.flats.addr + K.TABLE_BYTES * m, 6,
+                      n_pages, o + m * step)]
+    assert (K.launches, K.pages, K.plain_calls) == (
+        counts[0] + 2, counts[1] + n * n_pages, counts[2])
 
 
 @pytest.mark.cuda
@@ -332,3 +403,28 @@ def test_kernel_matches_plain_on_card():
     assert torch.equal(got, plain)
     assert np.array_equal(got.cpu().numpy(), np.stack(flats))
     assert np.array_equal(up.aux(st, buf).cpu().numpy(), aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_flats,n_pages", [(16, 2406), (16, 37),
+                                             (K.MAX_FLATS + 6, 37)])
+def test_kernel_runs_across_flats_on_card(n_flats, n_pages):
+    """Runs of zero and nonzero pages that cross the flats' boundaries
+    and the kernel's runs, in a 16-flat round (nc03's page count, and one
+    that is no multiple of a run) and past MAX_FLATS (two launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    flats = _mixed_round(np.random.default_rng(n_flats + n_pages), n_flats,
+                         n_pages)
+    up = U.Uploader(dev)
+    st = up.stage(flats)
+    buf = up.send(st)
+    launches = K.launches
+    got = up.expand(st, buf)
+    assert K.launches == launches + -(-n_flats // K.MAX_FLATS)
+    plain = K.expand_pages_plain(torch.empty_like(got), buf, st.flats,
+                                 n_pages)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.cpu().numpy(), np.stack(flats))
