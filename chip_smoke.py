@@ -24,7 +24,7 @@ Phases, each of which exits non-zero on failure:
          per frame with at least one 0 (that frame must come back
          untouched);
        - the tile probe at [200, 200] against tile_probe_plain and the
-         probe's NumPy reference;
+         probe's NumPy reference (phase 5 holds it on two more inputs);
        - the persistent intra kernel (K4) against intra_pass_plain on the
          inputs of tools/kernel_cases.py (every block size 4 to 32, all 10
          modes, partial availability, the three tl_modes, units on and
@@ -74,7 +74,8 @@ Phases, each of which exits non-zero on failure:
          call), the page expansion once per frame, and no plain version
          ever; each stream's flats sent dense (dense_frames) are printed;
        - the tile probe through its entry point (tools/tile_probe.py),
-         checked against the probe's NumPy reference;
+         checked against the probe's NumPy reference: all 3 waves in one
+         launch;
        - the multi-stream decoders (runtime/multistream.py), each run on
          its own counts: BatchedTorchDecoder on 16 copies of nc03 (12
          rounds), on lg01 + in01 + kf02 (48 rounds: the ring wraps, short
@@ -90,6 +91,12 @@ Phases, each of which exits non-zero on failure:
          launch per host call, at most one per round, and the page
          expansion once per round (once per frame outside the batch); no
          plain version ever;
+       - every other VP9 fixture (tests/fixtures/*.ivf by its fourcc, and
+         large/hb01) that the decode above leaves out, whole, through
+         cuda_vp9_torch/tools/fixture_sweep.py, each stream on its own
+         counts: every frame MD5-exact to the end of its .md5, none on
+         the host but for a reference outside the spec's scale range, no
+         plain version; a line per stream and the phase's total time;
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
@@ -110,7 +117,12 @@ Phases, each of which exits non-zero on failure:
      one SB step (K1) and the 4:2:2 chroma filter's tile step (K7) on a
      frame one tile row tall, K7's split three ways (as it is, with no
      edge bit, and built without its write-back, LF422_SPLIT_DEFINES),
-     each also on the 1088x960 pair to read the hand-offs' share;
+     each also on the 1088x960 pair to read the hand-offs' share; the
+     tile probe on its 3 waves, on one entry (a tile step: times the
+     chain's depth, the critical-path floor) and on the anti-diagonal
+     waves of a 1088x1920 frame, each run held against the NumPy
+     reference: the event window, the wrapper's host time, the launch
+     alone on the device and the launches;
   6. the upload (runtime/upload.py): decode nc03, hd01, xl01 and 16 x
      nc03 with every expansion checked as it runs, the kernel's flats
      against expand_pages_plain on the same upload and against the
@@ -135,8 +147,8 @@ the repository beside this file, it exits non-zero and prints no result.
     python3 chip_smoke.py --baseline DIR
 
 runs only phase 5's timings of the two loop filters (K1's frame and step,
-K7's pair, p1_04's planes and its step split) and phase 6's of the page
-expansion, with the package of DIR (a checkout of another commit, such as
+K7's pair, p1_04's planes and its step split) and of the tile probe, and
+phase 6's of the page expansion, with the package of DIR (a checkout of another commit, such as
 the parent) in place of this one, so that one chip call times both
 commits with the same code, in turns.
 """
@@ -425,6 +437,140 @@ def probe_bound_ms(frame, masks, coords):
     n = int((coords.reshape(-1, 2)[:, 0] > 0).sum())
     return bound(n * (2 * 72 * 72 * frame.itemsize + 8 * masks.itemsize),
                  n * 64 * 4)
+
+
+def wide_probe_inputs(rng, sb_rows=17, sb_cols=30):
+    """(frame, masks, coords) of the probe's wide case: a 1088x1920 frame
+    of 17x30 superblocks plus the 8-pixel apron, random pixels and masks,
+    and waves of up to 4 entries cut from the anti-diagonals c + 2r of the
+    superblock order (the loop filter's), in order."""
+    H, W = 64 * sb_rows + 8, 64 * sb_cols + 8
+    frame = rng.integers(-2**20, 2**20, (H, W)).astype(np.int32)
+    masks = rng.integers(0, 64, (8 * sb_rows, 128)).astype(np.int32)
+    waves = []
+    for s in range(sb_cols + 2 * (sb_rows - 1)):
+        diag = [(r + 1, s - 2 * r + 1) for r in range(sb_rows)
+                if 0 <= s - 2 * r < sb_cols]
+        for k in range(0, len(diag), 4):
+            wave = diag[k:k + 4]
+            waves.append(wave + [(0, 0)] * (4 - len(wave)))
+    return frame, masks, np.asarray(waves, np.int32).reshape(-1)
+
+
+def probe_depth(coords) -> int:
+    """Tile steps on the critical path of a probe call: an entry follows
+    the earlier-wave entries whose tiles meet its own (those at the 3x3
+    superblocks around it)."""
+    depth, last = 0, {}
+    for wave in coords.reshape(-1, 4, 2).tolist():
+        got = {}
+        for r, c in (e for e in wave if e[0] > 0):
+            got[r, c] = 1 + max((last.get((r + a, c + b), 0)
+                                 for a in (-1, 0, 1) for b in (-1, 0, 1)))
+        last.update(got)
+        depth = max([depth, *got.values()])
+    return depth
+
+
+def device_ms(fn, setup, reps: int, kernel: str, launches: int = 1):
+    """Device milliseconds of the `launches` kernels whose names hold
+    `kernel` in one fn(setup()) call (the launch alone, without the host's
+    enqueue), summed, from torch.profiler's trace
+    over reps calls: each kernel goes to the call that started last before
+    it (each call ends in a synchronize), and the median is taken over the
+    calls whose `launches` kernels are all in the trace (the trace can
+    drop a few); None, with the count printed, when no call has them."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+    xs = [setup() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            with record_function("chip_smoke.call"):
+                fn(x)
+                torch.cuda.synchronize()
+    starts = sorted(e.time_range.start for e in prof.events()
+                    if e.name == "chip_smoke.call"
+                    and e.device_type == DeviceType.CPU)
+    per_call = [[] for _ in starts]
+    for e in prof.events():
+        if kernel in e.name and e.device_type == DeviceType.CUDA:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0:
+                per_call[i].append(e.time_range.elapsed_us())
+    sums = [sum(us) / 1e3 for us in per_call if len(us) == launches]
+    if len(sums) < reps:
+        print(f"{kernel}: {len(sums)} of {reps} calls with all {launches} "
+              f"launches in the trace")
+    return statistics.median(sums) if sums else None
+
+
+# the probe's timed inputs: its own 3 waves (the kernels line's row), one
+# entry of them (a tile step) and the 1088x1920 anti-diagonal waves
+PROBE_CASES = ("3 waves [200, 200]", "one entry [200, 200]",
+               "1088x1920 anti-diagonals")
+
+
+def probe_timings(dev, card, TP, probe_tool):
+    """The tile probe on each of PROBE_CASES: every run (the first, 50
+    timed ones, the plain version's) held against the probe's NumPy
+    reference; the event window around one wrapper call (median of 50),
+    the wrapper's host time, the launch alone on the device (its kernels'
+    device time, summed over the call's launches), the launches, the
+    plain version's window and the bound; then the critical-path floor,
+    the tile steps of the case's chain times the one entry's launch alone.
+    Exits on a mismatch; returns case -> (ms, plain_ms, bound, by,
+    host_ms, device_ms, launches)."""
+    pf, pm, pc = probe_tool.probe_inputs()
+    one = np.zeros_like(pc)
+    one[:2] = pc[:2]
+    cases = dict(zip(PROBE_CASES, ((pf, pm, pc), (pf, pm, one),
+                                   wide_probe_inputs(
+                                       np.random.default_rng(2027)))))
+    rows = {}
+    for what, (frame, masks, coords) in cases.items():
+        want = probe_tool.probe_reference(frame, masks, coords)
+        f0 = torch.from_numpy(frame).to(dev)
+        md = torch.from_numpy(masks).to(dev)
+        ct = torch.from_numpy(coords)
+        n_bad = []
+
+        def held(f):
+            n_bad.append(not np.array_equal(f.cpu().numpy(), want))
+
+        before = TP.launches
+        held(TP.tile_probe(f0.clone(), ct, md))
+        launches = TP.launches - before
+        ms = cuda_ms(lambda f: TP.tile_probe(f, ct, md), 50, f0.clone, held)
+        plain_ms = cuda_ms(lambda f: TP.tile_probe_plain(f, ct, md), 5,
+                           f0.clone, held)
+        if len(n_bad) != 56 or any(n_bad):
+            raise SystemExit(f"tile_probe {what}: {sum(n_bad)} of 56 runs "
+                             "differ from the NumPy reference")
+        host = host_ms(lambda f: TP.tile_probe(f, ct, md), f0.clone, 100)
+        dev_ms = device_ms(lambda f: TP.tile_probe(f, ct, md), f0.clone, 20,
+                           "tile_probe", launches)
+        b, by = probe_bound_ms(frame, masks, coords)
+        rows[what] = (ms, plain_ms, b, by, host, dev_ms, launches)
+        n = int((coords.reshape(-1, 2)[:, 0] > 0).sum())
+        print(f"tile_probe {what} ({n} entries in {len(coords) // 8} "
+              f"waves, chain {probe_depth(coords)} tiles deep) median: "
+              f"event window {ms:.4f} ms (the wrapper's host time "
+              f"{host:.4f} ms, the launch alone on the device "
+              f"{fmt_ms(dev_ms)}), {launches} launches, plain "
+              f"{plain_ms:.4f} ms, bound {b:.6f} ms ({by}); 56 of 56 runs "
+              f"equal the NumPy reference [{card}]")
+    step = rows[PROBE_CASES[1]][5]
+    for what, (frame, masks, coords) in cases.items():
+        d = probe_depth(coords)
+        print(f"tile_probe {what}: critical-path floor {d} x "
+              f"{fmt_ms(step)} = "
+              f"{fmt_ms(None if step is None else d * step)} [{card}]")
+    return rows
 
 
 # int32 operations per predicted pixel of csrc/intra.cu, counted on its
@@ -1227,24 +1373,6 @@ def host_ms(fn, setup, reps=20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, setup, reps: int, kernel: str):
-    """Median device milliseconds of the kernel whose name holds `kernel`
-    in fn(setup()), from torch.profiler's CUDA trace over reps runs (the
-    kernel alone, without the host's enqueue), or None when the trace
-    holds no such kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    xs = [setup() for _ in range(reps)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            fn(x)
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if kernel in e.name and e.device_type == DeviceType.CUDA]
-    return statistics.median(times) / 1e3 if times else None
-
-
 def mc_timings(card, MC, _build):
     """Phase 5: the MC kernel against its twin (CUDA events) on nc03's
     busiest inter frame and hd01's first inter frame, mask phase
@@ -1648,26 +1776,29 @@ def baseline(tree: Path) -> int:
     p1_04's planes, the step split as far as DIR's loopfilter.cu builds
     it), and phase 6's of the page expansion (hd01's first two frames and
     16 x nc03's first two rounds, each expansion held against its twin as
-    it runs), with the package of DIR, a checkout of another commit, in
-    place of this one: the same code times before and after in one call.
-    Prints no contract line."""
+    it runs), and phase 5's of the tile probe (PROBE_CASES), with the
+    package of DIR, a checkout of another commit, in place of this one:
+    the same code times before and after in one call.  Prints no contract
+    line."""
     sys.path.insert(0, str(tree))
     from cuda_vp9_torch.ops.cuda import _build
     from cuda_vp9_torch.ops.cuda import lf422 as L4
     from cuda_vp9_torch.ops.cuda import loopfilter as LF
     from cuda_vp9_torch.ops.cuda import pages as PG
+    from cuda_vp9_torch.ops.cuda import tileprobe as TP
     from cuda_vp9_torch.runtime import upload as UP
+    from cuda_vp9_torch.tools import tile_probe as probe_tool
 
     card = card_line()
     dev = torch.device("cuda")
     print(f"{card}\nbaseline: the package of {tree}")
     split = LF422_SPLIT_DEFINES[0].split("=")[0] in (
         _build.CSRC / "loopfilter.cu").read_text()
-    jobs = [("loopfilter", ()), ("pages", ())] + (
+    jobs = [("loopfilter", ()), ("pages", ()), ("tileprobe", ())] + (
         [("loopfilter", LF422_SPLIT_DEFINES)] if split else [])
     with ThreadPoolExecutor(len(jobs)) as ex:
         list(ex.map(lambda j: _build.build(*j), jobs))
-    for k in ("loopfilter", "pages"):
+    for k in ("loopfilter", "pages", "tileprobe"):
         for fn, line in ptxas_usage(_build.build_log.get(k, "")):
             print(f"ptxas {k}.cu {fn}: {line}")
     rng = np.random.default_rng(2026)
@@ -1690,7 +1821,25 @@ def baseline(tree: Path) -> int:
                   split)
     _, kept, _ = capture_uploads(PG, UP, [(KEYFRAME, 2)], 2)
     expansion_timings(dev, card, PG, kept)
+    probe_timings(dev, card, TP, probe_tool)
     return 0
+
+
+def fixture_sweep_phase():
+    """Phase 4d: every VP9 fixture that phase 4a does not decode, whole,
+    through cuda_vp9_torch/tools/fixture_sweep.py on the card: each
+    stream's frames MD5-exact to the end of its .md5, none on the host
+    (but for a reference outside the spec's scale range, named), no plain
+    version, each stream's kernel counts set to 0 before it.  Exits on a
+    failure."""
+    from cuda_vp9_torch.tools import fixture_sweep as FS
+    done = {name for name, _, _ in STREAMS}
+    names = [n for n in FS.vp9_streams() if n not in done]
+    recs = FS.sweep(names, "cuda")
+    if not recs or not all(r["ok"] for r in recs):
+        raise SystemExit("fixture sweep: "
+                         + ", ".join(r["name"] for r in recs if not r["ok"])
+                         + " failed")
 
 
 def main() -> int:
@@ -1933,14 +2082,18 @@ def main() -> int:
     err, _ = probe_tool.run("cuda", check_plain=False)
     probe_launches, probe_plain = TP.launches, TP.plain_calls
     print(f"tile probe path: max_abs_err {err} against the NumPy reference, "
-          f"kernel launches {probe_launches}, plain calls {probe_plain}")
-    if err or not probe_launches or probe_plain or LF.launches \
+          f"kernel launches {probe_launches} (all 3 waves in one), plain "
+          f"calls {probe_plain}")
+    if err or probe_launches != 1 or probe_plain or LF.launches \
             or L4.launches or IN.launches or RS.launches or MC.launches \
             or PG.launches:
         raise SystemExit("the tile-probe path failed")
 
     # 4c. the multi-stream decoders, each counted on its own
     lfs_launches = multi_stream_paths(LF, counted)
+
+    # 4d. every other VP9 fixture, whole, each stream counted on its own
+    fixture_sweep_phase()
 
     # 5. warm decode rate and kernel timing
     for k in counted:
@@ -2006,16 +2159,8 @@ def main() -> int:
           f"64x1920: {t30:.4f} ms); critical path at 1920x1088: "
           f"{N_STEPS} steps = {N_STEPS * step:.4f} ms [{card}]")
     l4_row = lf422_timings(rng, dev, card, L4, _build, l4_big)
-    pf, pm, pc = probe_tool.probe_inputs()
-    pf_d, pm_d = torch.from_numpy(pf).to(dev), torch.from_numpy(pm).to(dev)
-    pc_t = torch.from_numpy(pc)
-    TP.tile_probe(pf_d.clone(), pc_t, pm_d)
-    probe_ms = cuda_ms(lambda f: TP.tile_probe(f, pc_t, pm_d), 50, pf_d.clone)
-    probe_plain_ms = cuda_ms(lambda f: TP.tile_probe_plain(f, pc_t, pm_d), 20,
-                             pf_d.clone)
-    pbound, pby = probe_bound_ms(pf, pm, pc)
-    print(f"tile_probe [200, 200] median: kernel {probe_ms:.4f} ms, plain "
-          f"{probe_plain_ms:.4f} ms, bound {pbound:.6f} ms ({pby}) [{card}]")
+    probe_rows = probe_timings(dev, card, TP, probe_tool)
+    probe_ms, probe_plain_ms, pbound, pby = probe_rows[PROBE_CASES[0]][:4]
 
     F, lfm, thr = rand_lf_stack(rng, 16, *LFS_SHAPE, 10)
     lf_on = [1] * 16

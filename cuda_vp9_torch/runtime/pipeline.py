@@ -14,7 +14,8 @@ Tiers as in JAX: intra-only frames pack the "full" tier, inter frames
 "tight", escalating to "wide" when tight overflows, and frames with a
 reference of another size "scaled".  A frame that overflows its last
 tier, or whose reference lies outside the spec's scale range, is decoded
-by the host oracle (counted in `frames_on_host`), and the pool slots it
+by the host oracle (counted in `frames_on_host`; the second kind also in
+`frames_out_of_scale`), and the pool slots it
 refreshes are re-uploaded before a later device frame reads them
 (`_sync_slot`).  The pool canvas is the largest of the frame and its
 references, kept across frames until a keyframe changes it, or the bit
@@ -108,6 +109,7 @@ class TorchRecon:
         self.frames_on_device = 0
         self.frames_on_host = 0
         self.frames_wide = 0      # inter frames escalated to the wide tier
+        self.frames_out_of_scale = 0  # host frames: a reference out of range
 
     def _step(self, mi_rows, mi_cols, tier, pool_ha, lossless, bd, ss):
         key = (mi_rows, mi_cols, tier, pool_ha, lossless, bd, ss)
@@ -186,6 +188,8 @@ class TorchRecon:
         planes = None
         if self._can_run_on_device(hdr, refs):
             planes = self._recon_device(plan, refs)
+        else:
+            self.frames_out_of_scale += 1
         if planes is not None:
             self.frames_on_device += 1
             return planes

@@ -3,7 +3,9 @@ port's own native parser and packer, every frame's MD5 against the golden
 files.
 
 The streams cover what the port runs: keyframes (kf02, mn02), inter
-frames (in01), compound prediction with scaled references (cp01),
+frames (in01), the smallest geometries (mn01 16x16, mn03 18x10),
+extended motion vectors far outside the frame (mv01, mv02 at an odd
+98x66), compound prediction with scaled references (cp01),
 inter frames made of intra blocks (dn01), inter frames that overflow
 the tight tier and escalate to the wide one (io01), 10- and 12-bit
 4:2:0 (p2_01, p2_02, p2_04), 4:4:4 at 8 and 10 bits (p1_01, p3_01),
@@ -46,7 +48,9 @@ STREAMS = [("kf02_176x144", 5), ("mn02_32x24", 6), ("in01_176x144", 4),
            ("p2_04_176x144_12b_inter", 2), ("p3_01_176x144_444_10b", 5),
            ("p1_01_176x144_444", 5), ("p1_02_176x144_422", 2),
            ("p1_04_176x144_422_long", 2), ("ll01_176x144_lossless", 6),
-           ("ll02_96x64_lossless_inter", 8)]
+           ("ll02_96x64_lossless_inter", 8), ("mn01_16x16", 6),
+           ("mn03_odd_18x10", 6), ("mv01_176x144_extmv", 4),
+           ("mv02_odd_98x66_extmv", 4)]
 
 
 def _golden(name):
