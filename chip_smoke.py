@@ -14,9 +14,12 @@ Phases, each of which exits non-zero on failure:
          the 4:4:4 chroma-plane call (a chroma plane as plane 0 of a
          [3, hac, wac] canvas, zero chroma fields) at 10 bits; lf_on = 0
          must leave the frame untouched;
-       - the 4:2:2 chroma loop filter against lf_plane_tiles at bit depths
-         8, 10 and 12 on p1_04's 144x88 chroma planes and at 10 bits on
-         1088x960 planes (that plain run is timed for phase 5);
+       - the chroma tile filter (csrc/loopfilter.cu lf_tiles_kernel) against
+         lf_plane_tiles, at 4:2:2 (K7) and at 4:4:0: at bit depths 8, 10
+         and 12 on the chroma planes of a 176x144 frame (p1_04's 144x88,
+         p1_05's 72x176) and at 10 bits on the planes of a 1920x1088 frame
+         (1088x960, 544x1920; that plain run is timed for phase 5), and
+         lf_on = 0 (no launch, the frame untouched);
        - the loop filter's stream axis (lf_frames, one launch for N
          frames) against lf_frames_plain and against N single lf_frame
          calls: 16 frames on the 640x384 canvas at bit depths 8, 10 and
@@ -61,15 +64,19 @@ Phases, each of which exits non-zero on failure:
          nc03 (loop filter on), hd01 (1080p), cp01 (compound prediction,
          scaled references), the 10- and 12-bit streams p2_01, p2_02 and
          p2_04, the 4:4:4 streams p3_01 (10-bit) and p1_01, the 4:2:2
-         streams p1_02 and p1_04, hb01 (1080p 10-bit), and the lossless
-         streams ll01 and ll02 (filter level 0 throughout), and xl01
-         (3840x2176).  Every frame's MD5 must equal the golden file and
-         every frame must run on the device; the loop-filter kernel must
-         have launched on every stream with a filter level, the 4:2:2
-         chroma kernel on p1_02 and p1_04, the intra and the residual
-         kernels on every stream (each starts with a keyframe), the MC
-         kernel on every stream (each has inter frames) and its scaled
-         class on cp01, the intra, the residual and the MC kernels with
+         streams p1_02 and p1_04, hb01 (1080p 10-bit), the lossless
+         streams ll01 and ll02 (filter level 0 throughout), xl01
+         (3840x2176), the 4:4:0 streams of tests/fixtures/large p1_05,
+         p3_02 (10-bit) and p1_06 (640x360), and the scaled-reference 4:4:4
+         and 4:2:2 streams sc02 and sc03.  Every frame's MD5 must equal the
+         golden file and every frame must run on the device; the
+         loop-filter kernel must have launched on every stream with a
+         filter level, the chroma tile kernel once a frame with a level at
+         4:2:2 on p1_02 and p1_04 and at 4:4:0 on p1_05, p3_02 and p1_06
+         and nowhere else, the intra and the residual kernels on every
+         stream (each starts with a keyframe), the MC kernel on every
+         stream (each has inter frames) and its scaled class on cp01, sc02
+         and sc03, the intra, the residual and the MC kernels with
          at most one launch per frame each (intra and MC: one per host
          call), the page expansion once per frame, and no plain version
          ever; each stream's flats sent dense (dense_frames) are printed;
@@ -114,10 +121,12 @@ Phases, each of which exits non-zero on failure:
      registers, spills and shared memory; each timed run of the loop
      filter is also held against the plain result, and lf_frames on 16
      640x384 frames is timed beside 16 lf_frame calls; the loop filter's
-     one SB step (K1) and the 4:2:2 chroma filter's tile step (K7) on a
-     frame one tile row tall, K7's split three ways (as it is, with no
-     edge bit, and built without its write-back, LF422_SPLIT_DEFINES),
-     each also on the 1088x960 pair to read the hand-offs' share; the
+     one SB step (K1) and the chroma tile filter's tile step at 4:2:2
+     (K7) and at 4:4:0 on a frame one tile row tall, each split three
+     ways (as it is, with no edge bit, and built without its write-back,
+     LF422_SPLIT_DEFINES), each also on the 1920x1088 frame's pair of
+     planes (1088x960, 544x1920) to read the chain floor (N_STEPS steps)
+     and the hand-offs' share; the
      tile probe on its 3 waves, on one entry (a tile step: times the
      chain's depth, the critical-path floor) and on the anti-diagonal
      waves of a 1088x1920 frame, each run held against the NumPy
@@ -147,7 +156,8 @@ the repository beside this file, it exits non-zero and prints no result.
     python3 chip_smoke.py --baseline DIR
 
 runs only phase 5's timings of the two loop filters (K1's frame and step,
-K7's pair, p1_04's planes and its step split) and of the tile probe, and
+the chroma tile filter's pair, 176x144 planes and step split, at 4:4:0
+too where DIR has it) and of the tile probe, and
 phase 6's of the page expansion, with the package of DIR (a checkout of another commit, such as
 the parent) in place of this one, so that one chip call times both
 commits with the same code, in turns.
@@ -181,14 +191,25 @@ STREAMS = (("nc03_640x360_occl", 12, True), ("hd01_1920x1080_t4", 4, True),
            ("large/hb01_1920x1080_10b", 3, False),
            ("ll01_176x144_lossless", 6, False),
            ("ll02_96x64_lossless_inter", 8, False),
-           ("xl01_3840x2176_t4", 6, False))
+           ("xl01_3840x2176_t4", 6, False),
+           ("large/p1_05_176x144_440", 10, True),
+           ("large/p3_02_176x144_440_10b", 6, True),
+           ("large/p1_06_640x360_440", 10, True),
+           ("large/sc02_176x144_444_scaled", 5, True),
+           ("large/sc03_176x144_422_scaled", 5, True))
 WARM = ("nc03_640x360_occl", "hd01_1920x1080_t4", "cp01_352x288_compound",
         "large/hb01_1920x1080_10b", "xl01_3840x2176_t4")
 LF_SHAPES = ((8, 8), (135, 240))      # mi grids: 64x64 and 1920x1088 canvas
-# 4:2:2 mi grids: p1_04's 176x144 (chroma 88x144) and 1920x1088 (chroma
-# 960x1088)
-LF422_SHAPES = ((18, 22), (135, 240))
-LF422_STREAMS = ("p1_02_176x144_422", "p1_04_176x144_422_long")
+# the chroma tile filter's formats (ss_x, ss_y): 4:2:2 (K7) and 4:4:0
+S422, S440 = (1, 0), (0, 1)
+FORMAT = {S422: "4:2:2", S440: "4:4:0"}
+# its mi grids: the 176x144 frame of p1_04 and p1_05 (chroma 88x144 at
+# 4:2:2, 176x72 at 4:4:0) and 1920x1088 (chroma planes 1088x960 at 4:2:2,
+# 544x1920 at 4:4:0)
+TILE_SHAPES = ((18, 22), (135, 240))
+# the streams that must run the scaled MC class (K6)
+SCALED_STREAMS = ("cp01_352x288_compound", "large/sc02_176x144_444_scaled",
+                  "large/sc03_176x144_422_scaled")
 LFS_SHAPE = (45, 80)                  # mi grid of the 640x384 canvas
 NC03_BATCH = ("nc03_640x360_occl",) * 16
 MIX = ("lg01_176x144_48f", "in01_176x144", "kf02_176x144")
@@ -198,8 +219,9 @@ KERNELS = ("loopfilter", "tileprobe", "intra", "residual", "mc", "pages")
 # loopfilter.cu built without K7's write-back, for the split of its step
 LF422_SPLIT_DEFINES = ("VP9_LF422_NO_WRITEBACK=1",)
 # tile steps on the critical path of a 1920x1088 frame (K1) and of its
-# 4:2:2 chroma, two 1088x960 planes (K7): cols + rows - 1 (the kernels
-# hand off in half steps: csrc/loopfilter.cu)
+# 4:2:2 or 4:4:0 chroma, two 1088x960 or 544x1920 planes (K7, the same 17
+# x 30 tiles): cols + rows - 1 (the kernels hand off in half steps:
+# csrc/loopfilter.cu)
 N_STEPS = 30 + 17 - 1
 # mc.cu built with other register caps (blocks an SM at least; the
 # source's own is 4), timed beside it in phase 5
@@ -332,15 +354,16 @@ def strided(dev, arr, pad=512):
     return torch.from_numpy(rows).to(dev)[:, :size].view(arr.shape)
 
 
-def rand_422_inputs(rng, mi_rows, mi_cols, bd):
-    """Random 4:2:2 frame F [3, ha, wa] (chroma planes in the left
-    [ha, wa/2], luma zero) and the five int16 per-cell maps (vbits, hbits,
-    mb, lm, hv [ha/8, wa/16]) with edges in the visible cells, none on the
-    planes' left and top borders, as runtime/pack._pack_lf writes them."""
+def rand_tile_inputs(rng, mi_rows, mi_cols, bd, ss=S422):
+    """Random 4:2:2 or 4:4:0 frame F [3, ha, wa] (chroma planes in the
+    top-left [ha >> ss_y, wa >> ss_x], luma zero) and the five int16
+    per-cell maps (vbits, hbits, mb, lm, hv [ha >> ss_y >> 3, wa >> ss_x
+    >> 3]) with edges in the visible cells, none on the planes' left and
+    top borders, as runtime/pack._pack_lf writes them."""
     from cuda_vp9_torch.ops.ref.loopfilter import make_thresholds
 
     ha, wa = ((mi_rows + 7) & ~7) * 8, ((mi_cols + 7) & ~7) * 8
-    R, C = mi_rows, (mi_cols + 1) // 2
+    R, C = (mi_rows + ss[1]) >> ss[1], (mi_cols + ss[0]) >> ss[0]
     F = np.zeros((3, ha, wa), np.int32)
     for p in (1, 2):
         F[p, :8 * R, :8 * C] = pixels(rng, 8 * R, 8 * C, bd)
@@ -360,7 +383,7 @@ def rand_422_inputs(rng, mi_rows, mi_cols, bd):
     maps = []
     for v in (bits(False), bits(True),
               *(t[lv] for t in make_thresholds(int(rng.integers(0, 8))))):
-        m = np.zeros((ha // 8, wa // 16), np.int16)
+        m = np.zeros((ha >> ss[1] >> 3, wa >> ss[0] >> 3), np.int16)
         m[:R, :C] = v
         maps.append(m)
     return F, maps
@@ -418,13 +441,13 @@ def lfs_bound_ms(F, lfm, thr, lf_on):
     return bound(sum(w[0] for w in work), sum(w[1] for w in work))
 
 
-def lf422_bound_ms(F, maps):
-    """(bound ms, "bytes" or "operations") of one lf_chroma_422 call: the
-    two chroma planes (the left [ha, wa/2] of planes 1 and 2) read once
-    and written once and the five maps read once, against the operations
-    of both planes' edges."""
+def tile_bound_ms(F, maps, ss=S422):
+    """(bound ms, "bytes" or "operations") of one lf_chroma_tiles call: the
+    two chroma planes (the top-left [ha >> ss_y, wa >> ss_x] of planes 1
+    and 2) read once and written once and the five maps read once, against
+    the operations of both planes' edges."""
     _, ha, wa = F.shape
-    px = 2 * ha * (wa // 2)
+    px = 2 * (ha >> ss[1]) * (wa >> ss[0])
     return bound(2 * px * F.itemsize + sum(m.nbytes for m in maps),
                  2 * (edge_ops(maps[0]) + edge_ops(maps[1])))
 
@@ -750,6 +773,15 @@ def filter_levels(name):
     return [[parse_uncompressed_header(
         d[o:o + n], ref_sizes=lambda i: (16, 16)).lf.filter_level
         for o, n in parse_superframe_index(d)] for d in packets(name)]
+
+
+def chroma_format(name):
+    """(ss_x, ss_y) of a stream, from its first packet's header (a
+    keyframe's, which codes it)."""
+    from cuda_vp9_torch.decoder.headers import parse_uncompressed_header
+    hdr = parse_uncompressed_header(packets(name)[0],
+                                    ref_sizes=lambda i: (16, 16))
+    return hdr.subsampling_x, hdr.subsampling_y
 
 
 def rounds_with_level(names, rounds=None):
@@ -1708,47 +1740,72 @@ def lf_row_ms(dev, LF, mi_cols):
     return cuda_ms(fn, 50, Fd.clone)
 
 
-def lf422_ms(dev, L4, F, maps, reps, want=None):
-    """Median ms of lf_chroma_422 on F (bd 10), each timed run held against
-    `want` when given."""
+def tile_fns(L4):
+    """(kernel, plain) of the chroma tile filter, taking the format as
+    `ss`; the package of a commit from before its 4:4:0 form (--baseline)
+    has only the 4:2:2 functions."""
+    if hasattr(L4, "lf_chroma_tiles"):
+        return L4.lf_chroma_tiles, L4.lf_chroma_tiles_plain
+
+    def only_422(fn):
+        def call(*a, ss, **k):
+            if tuple(ss) != S422:
+                raise SystemExit("this package has no 4:4:0 tile filter")
+            return fn(*a, **k)
+        return call
+    return only_422(L4.lf_chroma_422), only_422(L4.lf_chroma_422_plain)
+
+
+def tile_ms(dev, L4, F, maps, reps, want=None, ss=S422):
+    """Median ms of the chroma tile filter on F (bd 10), each timed run
+    held against `want` when given."""
+    tiles = tile_fns(L4)[0]
     md = [torch.from_numpy(m).to(dev) for m in maps]
     Fd = torch.from_numpy(F).to(dev)
     bad = []
 
     def held(f):
         bad.append(not torch.equal(f, want))
-    L4.lf_chroma_422(Fd.clone(), *md, 1, bd=10)
-    ms = cuda_ms(lambda f: L4.lf_chroma_422(f, *md, 1, bd=10), reps,
+    tiles(Fd.clone(), *md, 1, bd=10, ss=ss)
+    ms = cuda_ms(lambda f: tiles(f, *md, 1, bd=10, ss=ss), reps,
                  Fd.clone, held if want is not None else None)
     if any(bad):
-        raise SystemExit(f"lf_chroma_422: {sum(bad)} of {reps} timed runs "
-                         "differ from the plain result")
+        raise SystemExit(f"{FORMAT[ss]} lf_chroma_tiles: {sum(bad)} of "
+                         f"{reps} timed runs differ from the plain result")
     return ms
 
 
-def lf422_timings(rng, dev, card, L4, _build, big, split=True):
-    """Phase 5: K7 on two 1088x960 planes (each timed run held against
-    phase 2's plain result) and on p1_04's 144x88, and the split of its
-    tile step: one tile row of 1 and of 30 tiles (no row waits) and the
-    1088x960 pair, each as it is (full), with both edge-bit maps zero
-    (loads, syncs and write-back only) and built without the write-back
-    (LF422_SPLIT_DEFINES); the hand-off share is what the pair takes
-    beyond N_STEPS full steps (split=False: without the third, for a
-    source that has no such build).  Returns (ms, plain_ms, bound, by) of
-    the pair."""
+def tile_timings(rng, dev, card, L4, _build, big, split=True, ss=S422):
+    """Phase 5: the chroma tile filter of format ss (K7 at 4:2:2) on the
+    two planes of the 1920x1088 frame (1088x960 at 4:2:2, 544x1920 at
+    4:4:0; each timed run held against phase 2's plain result) and on
+    those of the 176x144 frame, and the split of its tile step: one tile
+    row of 1 and of 30 tiles (no row waits) and the 1920x1088 pair, each
+    as it is (full), with both edge-bit maps zero (loads, syncs and
+    write-back only) and built without the write-back
+    (LF422_SPLIT_DEFINES); the chain floor is N_STEPS full steps and the
+    hand-off share what the pair takes beyond it (split=False: without the
+    third, for a source that has no such build).  Returns (ms, plain_ms,
+    bound, by) of the pair."""
     F, maps, plain_ms, want = big
-    ms = lf422_ms(dev, L4, F, maps, 20, want)
-    bound_, by = lf422_bound_ms(F, maps)
-    small = rand_422_inputs(rng, *LF422_SHAPES[0], 10)
-    s_ms = lf422_ms(dev, L4, *small, 20)
+    th, tw = 64 >> ss[1], 64 >> ss[0]
+    _, ha, wa = F.shape
+    pair = f"{ha >> ss[1]}x{wa >> ss[0]}"
+    ms = tile_ms(dev, L4, F, maps, 20, want, ss)
+    bound_, by = tile_bound_ms(F, maps, ss)
+    small = rand_tile_inputs(rng, *TILE_SHAPES[0], 10, ss)
+    s_ms = tile_ms(dev, L4, *small, 20, ss=ss)
     smd = [torch.from_numpy(m).to(dev) for m in small[1]]
-    s_plain_ms = cuda_ms(lambda f: L4.lf_chroma_422_plain(f, *smd, 1, bd=10),
-                         3, lambda: torch.from_numpy(small[0]).to(dev))
-    print(f"lf_chroma_422 1088x960 planes bd 10 median: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms (one run, phase 2), bound {bound_:.4f} "
-          f"ms ({by}); 20 of 20 timed runs equal the plain result; 144x88 "
-          f"planes: kernel {s_ms:.4f} ms, plain {s_plain_ms:.3f} ms [{card}]")
-    rows = [rand_422_inputs(np.random.default_rng(5), 8, c, 10)
+    plain = tile_fns(L4)[1]
+    s_plain_ms = cuda_ms(lambda f: plain(f, *smd, 1, bd=10, ss=ss), 3,
+                         lambda: torch.from_numpy(small[0]).to(dev))
+    fmt = FORMAT[ss]
+    print(f"{fmt} lf_chroma_tiles {pair} planes bd 10 median: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms (one run, phase 2), bound "
+          f"{bound_:.4f} ms ({by}); 20 of 20 timed runs equal the plain "
+          f"result; 176x144 frame's planes: kernel {s_ms:.4f} ms, plain "
+          f"{s_plain_ms:.3f} ms [{card}]")
+    rows = [rand_tile_inputs(np.random.default_rng(5), 8, c, 10, ss)
             for c in (8, 240)]
     variants = (("full", (), False), ("edge bits 0", (), True),
                 ("no write-back", LF422_SPLIT_DEFINES, False))
@@ -1758,23 +1815,25 @@ def lf422_timings(rng, dev, card, L4, _build, big, split=True):
                 maps = [np.zeros_like(m) if i < 2 else m
                         for i, m in enumerate(maps)]
             with lib_build(_build, "loopfilter", defines):
-                return lf422_ms(dev, L4, F, maps, 50)
+                return tile_ms(dev, L4, F, maps, 50, ss=ss)
         t1, t30 = (t(*x) for x in rows)
         step = (t30 - t1) / 29
         whole = t(F, maps)
-        print(f"lf_chroma_422 step split, {what}: one tile step "
-              f"{step * 1e3:.2f} us (64x32: {t1:.4f} ms, 64x960: {t30:.4f} "
-              f"ms); 1088x960: {whole:.4f} ms = {N_STEPS} steps "
-              f"{N_STEPS * step:.4f} ms + {whole - N_STEPS * step:.4f} ms of "
-              f"hand-offs and strip loads [{card}]")
+        print(f"{fmt} lf_chroma_tiles step split, {what}: one tile step "
+              f"{step * 1e3:.2f} us ({th}x{tw}: {t1:.4f} ms, {th}x{30 * tw}: "
+              f"{t30:.4f} ms); {pair}: {whole:.4f} ms = chain floor "
+              f"{N_STEPS} steps {N_STEPS * step:.4f} ms + "
+              f"{whole - N_STEPS * step:.4f} ms of hand-offs and strip "
+              f"loads [{card}]")
     return ms, plain_ms, bound_, by
 
 
 def baseline(tree: Path) -> int:
     """python3 chip_smoke.py --baseline DIR: phase 5's timings of K1 (one
-    1920x1088 frame at bd 10, one SB step) and of K7 (the 1088x960 pair,
-    p1_04's planes, the step split as far as DIR's loopfilter.cu builds
-    it), and phase 6's of the page expansion (hd01's first two frames and
+    1920x1088 frame at bd 10, one SB step) and of the chroma tile filter
+    (K7's 1088x960 pair, p1_04's planes, the step split as far as DIR's
+    loopfilter.cu builds it; the same at 4:4:0 where DIR has it), and phase
+    6's of the page expansion (hd01's first two frames and
     16 x nc03's first two rounds, each expansion held against its twin as
     it runs), and phase 5's of the tile probe (PROBE_CASES), with the
     package of DIR, a checkout of another commit, in place of this one:
@@ -1811,14 +1870,16 @@ def baseline(tree: Path) -> int:
     t1, t30 = lf_row_ms(dev, LF, 8), lf_row_ms(dev, LF, 240)
     print(f"lf_frame 1920x1088 bd 10 median: kernel {ms:.4f} ms; one SB "
           f"step {(t30 - t1) / 29 * 1e3:.2f} us [{card}]")
-    F, maps = rand_422_inputs(rng, *LF422_SHAPES[1], 10)
-    want = torch.from_numpy(F).to(dev)
-    L4.lf_chroma_422(want, *(torch.from_numpy(m).to(dev) for m in maps), 1,
-                     bd=10)
-    # the timed runs are held against the first (the plain run takes
-    # tens of seconds; phase 2 holds the kernel against it)
-    lf422_timings(rng, dev, card, L4, _build, (F, maps, float("nan"), want),
-                  split)
+    tiles = tile_fns(L4)[0]
+    for ss in (S422, S440) if hasattr(L4, "lf_chroma_tiles") else (S422,):
+        F, maps = rand_tile_inputs(rng, *TILE_SHAPES[1], 10, ss)
+        want = torch.from_numpy(F).to(dev)
+        tiles(want, *(torch.from_numpy(m).to(dev) for m in maps), 1, bd=10,
+              ss=ss)
+        # the timed runs are held against the first (the plain run takes
+        # tens of seconds; phase 2 holds the kernel against it)
+        tile_timings(rng, dev, card, L4, _build,
+                      (F, maps, float("nan"), want), split, ss)
     _, kept, _ = capture_uploads(PG, UP, [(KEYFRAME, 2)], 2)
     expansion_timings(dev, card, PG, kept)
     probe_timings(dev, card, TP, probe_tool)
@@ -1923,39 +1984,44 @@ def main() -> int:
         if not torch.equal(Fo.cpu(), torch.from_numpy(F)):
             raise SystemExit("lf_on = 0 changed the frame")
     print("lf_on = 0: identity")
-    l4_err = 0
-    l4_cases = [(bd, LF422_SHAPES[0]) for bd in (8, 10, 12)]
-    l4_cases += [(10, LF422_SHAPES[1])]
-    for bd, mi in l4_cases:
-        F, maps = rand_422_inputs(rng, *mi, bd)
-        md = [torch.from_numpy(m).to(dev) for m in maps]
-        Fk = torch.from_numpy(F).to(dev)
-        Fp = Fk.clone()
-        L4.lf_chroma_422(Fk, *md, 1, bd=bd)
-        # the plain twin: lf_plane_tiles on each plane, written back
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        L4.lf_chroma_422_plain(Fp, *md, 1, bd=bd)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        err = int((Fk - Fp).abs().max())
-        changed = int((Fp != torch.from_numpy(F).to(dev)).sum())
-        what = f"{F.shape[1]}x{F.shape[2] // 2} planes bd {bd}"
-        print(f"lf_chroma_422 kernel vs lf_plane_tiles {what}: max_abs_err "
-              f"{err} (tolerance 0), {changed} pixels filtered, plain "
-              f"{plain_s:.3f} s")
-        if err or not changed:
-            raise SystemExit(f"4:2:2 chroma kernel disagrees at {what}")
-        l4_err = max(l4_err, err)
-        if mi == LF422_SHAPES[1]:
-            # one plain run of minutes is timed here, not repeated in 5
-            l4_big = (F, maps, plain_s * 1e3, Fp)
-    Fo = torch.from_numpy(F).to(dev)
-    before = L4.launches
-    L4.lf_chroma_422(Fo, *md, 0, bd=10)
-    if not torch.equal(Fo.cpu(), torch.from_numpy(F)) \
-            or L4.launches != before:
-        raise SystemExit("4:2:2 lf_on = 0 changed the frame or launched")
+    l4_err, l4_big = {}, {}
+    for ss in (S422, S440):
+        fmt = FORMAT[ss]
+        l4_err[ss] = 0
+        cases = [(bd, TILE_SHAPES[0]) for bd in (8, 10, 12)]
+        for bd, mi in cases + [(10, TILE_SHAPES[1])]:
+            F, maps = rand_tile_inputs(rng, *mi, bd, ss)
+            md = [torch.from_numpy(m).to(dev) for m in maps]
+            Fk = torch.from_numpy(F).to(dev)
+            Fp = Fk.clone()
+            L4.lf_chroma_tiles(Fk, *md, 1, bd=bd, ss=ss)
+            # the plain twin: lf_plane_tiles on both planes, written back
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            L4.lf_chroma_tiles_plain(Fp, *md, 1, bd=bd, ss=ss)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            err = int((Fk - Fp).abs().max())
+            changed = int((Fp != torch.from_numpy(F).to(dev)).sum())
+            what = (f"{F.shape[1] >> ss[1]}x{F.shape[2] >> ss[0]} planes "
+                    f"bd {bd}")
+            print(f"{fmt} lf_chroma_tiles kernel vs lf_plane_tiles {what}: "
+                  f"max_abs_err {err} (tolerance 0), {changed} pixels "
+                  f"filtered, plain {plain_s:.3f} s")
+            if err or not changed:
+                raise SystemExit(f"{fmt} chroma kernel disagrees at {what}")
+            l4_err[ss] = max(l4_err[ss], err)
+            if mi == TILE_SHAPES[1]:
+                # one plain run of tens of seconds is timed here, not
+                # repeated in 5
+                l4_big[ss] = (F, maps, plain_s * 1e3, Fp)
+        Fo = torch.from_numpy(F).to(dev)
+        before = L4.launches
+        L4.lf_chroma_tiles(Fo, *md, 0, bd=10, ss=ss)
+        if not torch.equal(Fo.cpu(), torch.from_numpy(F)) \
+                or L4.launches != before:
+            raise SystemExit(f"{fmt} lf_on = 0 changed the frame or "
+                             "launched")
     lfs_err = 0
     for bd, n, mi in [(bd, 16, LFS_SHAPE) for bd in (8, 10, 12)] + [
             (10, 2, LF_SHAPES[-1])]:
@@ -2009,6 +2075,7 @@ def main() -> int:
     for name, n, filtered in STREAMS:
         before = [(k.launches, getattr(k, "host_calls", 0)) for k in counted]
         extra = (MC.scaled_calls, MC.phases, IN.chunks, RS.buckets)
+        tiles_before = dict(L4.format_launches)
         md5s, recon, dt = decode(name, n)
         (lf_here, _), (l4_here, _), _, (in_here, calls_here), (rs_here, _), \
             (mc_here, mc_calls), (pg_here, _) = [
@@ -2017,14 +2084,18 @@ def main() -> int:
         mcs_here, phases_here, chunks_here, buckets_here = (
             a - b for a, b in zip((MC.scaled_calls, MC.phases, IN.chunks,
                                    RS.buckets), extra))
+        tiles_here = {ss: L4.format_launches[ss] - tiles_before[ss]
+                      for ss in FORMAT}
         lf_by_stream[name] = lf_here
         golden = golden_md5(name)[:n]
         bad = [i for i, (a, b) in enumerate(zip(md5s, golden)) if a != b]
         print(f"{name}: {len(md5s)} frames, MD5 mismatches {bad}, "
               f"on device {recon.frames_on_device}, on host "
               f"{recon.frames_on_host}, wide {recon.frames_wide}, "
-              f"lf_frame launches {lf_here}, lf_chroma_422 launches "
-              f"{l4_here}, intra launches {in_here} ({chunks_here} chunks) in "
+              f"lf_frame launches {lf_here}, lf_chroma_tiles launches "
+              f"{l4_here} (4:2:2 {tiles_here[S422]}, 4:4:0 "
+              f"{tiles_here[S440]}), intra launches {in_here} ({chunks_here} "
+              f"chunks) in "
               f"{calls_here} host calls, residual launches {rs_here} "
               f"({buckets_here} buckets), mc launches {mc_here} "
               f"({phases_here} phases; {mcs_here} with the scaled class) in "
@@ -2037,8 +2108,15 @@ def main() -> int:
             raise SystemExit(f"{name}: decode check failed")
         if filtered and not lf_here:
             raise SystemExit(f"{name}: the loop-filter kernel never ran")
-        if name in LF422_STREAMS and (not l4_here or L4.plain_calls):
-            raise SystemExit(f"{name}: the 4:2:2 chroma kernel never ran")
+        fmt = chroma_format(name)
+        for ss in FORMAT:
+            # one launch a frame with a level, on the streams of format ss
+            want = sum(lv > 0 for lv in sum(filter_levels(name), [])[:n]) \
+                if fmt == ss else 0
+            if tiles_here[ss] != want or L4.plain_calls:
+                raise SystemExit(f"{name}: {tiles_here[ss]} launches of the "
+                                 f"{FORMAT[ss]} chroma kernel, not {want}, "
+                                 f"or a plain call")
         if not 0 < in_here == calls_here <= n or not 0 < rs_here <= n \
                 or buckets_here < rs_here or chunks_here < in_here \
                 or IN.plain_calls or RS.plain_calls:
@@ -2046,22 +2124,25 @@ def main() -> int:
                              "ran, ran a plain twin, or made more than one "
                              "launch (intra: host call) a frame")
         if not 0 < mc_here == mc_calls <= n or MC.plain_calls \
-                or (name.startswith("cp01") and not mcs_here):
-            raise SystemExit(f"{name}: the MC kernel (or on cp01 its scaled "
-                             "class) never ran, ran a plain twin, or made "
-                             "more than one launch (host call) a frame")
+                or (name in SCALED_STREAMS and not mcs_here):
+            raise SystemExit(f"{name}: the MC kernel (or on cp01, sc02 and "
+                             "sc03 its scaled class) never ran, ran a plain "
+                             "twin, or made more than one launch (host "
+                             "call) a frame")
         if pg_here != recon.frames_on_device or PG.plain_calls:
             raise SystemExit(f"{name}: the page expansion did not run once "
                              "a frame, or ran its plain twin")
     lf_launches, lf_plain = LF.launches, LF.plain_calls
     l4_launches, l4_plain = L4.launches, L4.plain_calls
+    tile_launches = dict(L4.format_launches)
     in_launches, in_calls = IN.launches, IN.host_calls
     rs_launches = RS.launches
     mc_launches, mcs_launches, mask_launches = (MC.launches, MC.scaled_calls,
                                                 MC.mask_calls)
     pg_launches, pg_pages = PG.launches, PG.pages
     print(f"decode path: loop-filter kernel launches {lf_launches}, plain "
-          f"calls {lf_plain}; 4:2:2 chroma kernel launches {l4_launches}, "
+          f"calls {lf_plain}; chroma tile kernel launches {l4_launches} "
+          f"(4:2:2 {tile_launches[S422]}, 4:4:0 {tile_launches[S440]}), "
           f"plain calls {l4_plain}; intra kernel launches {in_launches} "
           f"({IN.chunks} chunks) in {in_calls} host calls, plain calls "
           f"{IN.plain_calls}; residual kernel launches {rs_launches} "
@@ -2072,7 +2153,8 @@ def main() -> int:
           f"{MC.plain_calls}; page expansion launches {pg_launches} "
           f"({pg_pages} pages), plain calls {PG.plain_calls}; "
           f"tile-probe launches {TP.launches}")
-    if lf_launches == 0 or lf_plain or l4_launches == 0 or l4_plain:
+    if lf_launches == 0 or lf_plain or l4_plain \
+            or not all(tile_launches.values()):
         raise SystemExit("the decode path did not run the loop-filter "
                          "kernels")
 
@@ -2158,7 +2240,8 @@ def main() -> int:
     print(f"lf_frame one SB step {step * 1e3:.2f} us (64x64: {t1:.4f} ms, "
           f"64x1920: {t30:.4f} ms); critical path at 1920x1088: "
           f"{N_STEPS} steps = {N_STEPS * step:.4f} ms [{card}]")
-    l4_row = lf422_timings(rng, dev, card, L4, _build, l4_big)
+    l4_rows = {ss: tile_timings(rng, dev, card, L4, _build, l4_big[ss],
+                                 ss=ss) for ss in FORMAT}
     probe_rows = probe_timings(dev, card, TP, probe_tool)
     probe_ms, probe_plain_ms, pbound, pby = probe_rows[PROBE_CASES[0]][:4]
 
@@ -2215,12 +2298,15 @@ def main() -> int:
          "launches": lfs_launches, "max_abs_err": lfs_err,
          "ms": lfs_ms, "plain_ms": lfs_plain_ms, "bound_ms": lfs_bound,
          "bound_by": lfs_by, "library_ms": None},
-        {"name": "lf_plane_tiles", "route": "cuda",
-         "source": "cuda_vp9_torch/csrc/loopfilter.cu",
-         "replaces": "cuda_vp9_tpu/ops/device/lf_wave.py:180",
-         "launches": l4_launches, "max_abs_err": l4_err,
-         "ms": l4_row[0], "plain_ms": l4_row[1], "bound_ms": l4_row[2],
-         "bound_by": l4_row[3], "library_ms": None},
+        *({"name": name, "route": "cuda",
+           "source": "cuda_vp9_torch/csrc/loopfilter.cu",
+           "replaces": "cuda_vp9_tpu/ops/device/lf_wave.py:180",
+           "launches": tile_launches[ss], "max_abs_err": l4_err[ss],
+           "ms": l4_rows[ss][0], "plain_ms": l4_rows[ss][1],
+           "bound_ms": l4_rows[ss][2], "bound_by": l4_rows[ss][3],
+           "library_ms": None}
+          for name, ss in (("lf_plane_tiles", S422),
+                           ("lf_plane_tiles_440", S440))),
         {"name": "tile_probe", "route": "cuda",
          "source": "cuda_vp9_torch/csrc/tileprobe.cu",
          "replaces": "tools/profiling/pallas_probe.py:110",

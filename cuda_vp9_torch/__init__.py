@@ -6,12 +6,14 @@ and packer in `native/`, the frame driver and headers in `decoder/`,
 `models/`, the NumPy oracle in `ops/ref`,
 `runtime/{pack,plan,lfmeta}`, `utils/md5`), so it reads the same flat
 int16 wire as the JAX step, and it ports the per-frame device step for
-bit depths 8, 10 and 12 and chroma 4:2:0, 4:4:4 and 4:2:2 (keyframes,
-intra-only and inter frames, compound prediction, scaled references):
+bit depths 8, 10 and 12 and chroma 4:2:0, 4:4:4, 4:2:2 and 4:4:0
+(keyframes, intra-only and inter frames, compound prediction, scaled
+references):
 
   ops/transforms.py       inverse DCT/ADST 4..32 (int16 and int32 WRAPLOW)
   ops/device/stages.py    intra wavefront: the 10 predictors + residual
-  ops/device/lf_wave.py   4:2:2 chroma loop filter in luma-SB tile order
+  ops/device/lf_wave.py   4:2:2 and 4:4:0 chroma loop filter in luma-SB
+                          tile order
   ops/cuda/loopfilter.py  loop filter: CUDA kernel (csrc/loopfilter.cu)
                           and its plain torch twin
   ops/cuda/tileprobe.py   shared-memory tile probe: CUDA kernel

@@ -19,9 +19,9 @@ controls            -> vpx/vp8dx.h control IDs (subset)
 
 `vp9_dx_torch(device)` is the iface: the C++ host parser
 (`native/`) feeds `TorchRecon(device)` (runtime/pipeline.py), which
-reconstructs every frame on `device`; a frame outside the ported slice
-fails its decode (NotImplementedError) and never goes to the host.  It
-never swaps the device backend for another one: a failure to build it
+reconstructs every frame on `device` (only a frame whose reference lies
+outside the spec's scale range, or one that overflows its last capacity
+tier, goes to the host oracle, as in the JAX package).  It never swaps the device backend for another one: a failure to build it
 fails `vpx_codec_dec_init`.  VP8 is not part of this package.
 """
 

@@ -1,6 +1,7 @@
 // VP9 deblocking loop filter, hand-written for Hopper: the whole-frame
-// filter (K1, `vp9_lf_frames`) and the 4:2:2 chroma filter (K7,
-// `vp9_lf_plane_tiles`), each one persistent launch per call.
+// filter (K1, `vp9_lf_frames`) and the chroma tile filter of 4:2:2 (K7)
+// and 4:4:0 frames (`vp9_lf_plane_tiles`), each one persistent launch per
+// call.
 //
 // K1 replaces cuda_vp9_tpu/ops/pallas/loopfilter.py `lf_frame` (with
 // `_make_kernel`, `_run_chains` and `_edge_chain`), both as the frame step
@@ -24,18 +25,25 @@
 // (the chroma of one luma superblock), each tile's vertical windows left
 // to right, then its horizontal windows top to bottom, with five int16
 // per-cell maps (edge bits as in lfm, mblim, lim, hev; the thresholds are
-// scaled by bd - 8 here).
+// scaled by bd - 8 here).  The same kernel, a template on the tile
+// (lf_tiles_kernel<TH, TW>), filters the chroma of a 4:4:0 frame in tiles
+// of 32 rows and 64 columns (VP9's vp9_filter_block_plane_non420 order).
+// JAX's lf_plane_tiles is parametric in the tile too (gx = 8, gy = 4), but
+// the JAX package never calls it so: it sends 4:4:0 frames to its host
+// oracle, so this instance replaces no TPU code.
 //
 // Order.  Both walk a grid of tiles in which tile (r, c) needs (r, c-1)
 // and (r-1, c+1) finished: a 64x64 luma SB with its two 32x32 chroma
-// tiles for K1, a 64x32 tile of each chroma plane for K7.  A tile's
+// tiles for K1, a 64x32 (4:4:0: 32x64) tile of each chroma plane for K7.
+// A tile's
 // footprint is the tile and the 8-pixel strips to its left and above it,
 // with no corner.  In the vertical pass every pixel row is independent,
 // in the horizontal pass every pixel column, so a thread owns a row
 // (column) and walks its chains in order: for K1, 64 threads take the
 // luma rows (columns) and 2 x 32 the U and V ones, 8 and 4 chains each;
 // for K7, 2 x 64 threads the rows (4 chains each), then 2 x 32 the
-// columns (8 chains each).
+// columns (8 chains each); at 4:4:0, 2 x 32 threads the rows (8 chains
+// each), then 2 x 32 threads two columns each (4 chains a column).
 //
 // The two passes have different neighbours.  The vertical pass of (r, c)
 // reads and writes only the tile's own rows and its left strip, which
@@ -44,7 +52,7 @@
 // pass of (r-1, c) and its vertical pass of (r-1, c+1) (7 pixels of its
 // left strip), and writes it.  So a row publishes its progress in half
 // steps, and the critical path is cols + rows - 1 tile steps (46 at
-// 1920x1088), where whole-tile hand-offs would make it cols + 2 (rows - 1)
+// 1920x1088, 17 x 30 tiles in every form), where whole-tile hand-offs would make it cols + 2 (rows - 1)
 // (62).  One condition: the vertical pass of (r, c) writes its left strip
 // back before it publishes, because the horizontal pass of (r+1, c-1)
 // changes those pixels next.
@@ -69,11 +77,12 @@
 // K1's step (walk_rows, FrameTile) stages each pass's window from global
 // memory into shared memory, runs its chains there, writes the changed
 // pixels back and publishes after each pass.  K7's step keeps the
-// loads, most stores and half its block off the critical path (lf_422_kernel):
-//   - a tile's own 64 x 32 pixels and its map cells are fetched a step
+// loads, most stores and half its block off the critical path
+// (lf_tiles_kernel, at both tile shapes):
+//   - a tile's own TH x TW pixels and its map cells are fetched a step
 //     early, with cp.async into the other of two shared buffers: nobody
 //     changes them before the tile's vertical pass (row r-1 stops at row
-//     64 r - 1, row r+1 starts after this row has published tile c + 1);
+//     TH r - 1, row r+1 starts after this row has published tile c + 1);
 //   - its left strip is the last tile's right 8 columns, carried from
 //     shared memory, not reloaded: no other block touches them before
 //     the next vertical pass;
@@ -81,13 +90,17 @@
 //   - one release a step, after the vertical pass: a row waits for
 //     2 c + 3 or for the end of the row, never for 2 c + 2.  Before it
 //     goes only what the horizontal pass of (r+1, c-1) reads, the bottom
-//     8 rows of tile c-1 (512 pixels).  A thread of warp 2 makes it, so
+//     8 rows of tile c-1 (2 x 8 x TW pixels).  A thread of warp 2 makes
+//     it, so
 //     warps 0-1 go on to the wait and the top strip without waiting for
 //     its fence (they meet on a barrier of their own, barrier 1);
 //   - during the horizontal pass, which has work for warps 0-1 only,
 //     warps 2-3 (one a plane) write the rest of tile c-1 back (its rows
 //     above the bottom 8, which row r+1 changes next) and start the
 //     fetch of tile c + 1 into that buffer.
+// At 4:4:0 the vertical pass has only 64 row lanes, so warps 2-3 idle in
+// it, and the horizontal pass has 128 column lanes on warps 0-1: its
+// step is 8 + 8 chains deep where 4:2:2's is 4 + 8.
 // Every window sees exactly the pixels of the normative order: the copies
 // hold the same values as the plane would.
 //
@@ -108,12 +121,13 @@
 // against 3.564 ms for 16 launches; K7 0.338-0.372 ms for two 1088x960
 // planes at bd 10, one tile step 5.8-6.3 us, of which about 2 us is not
 // the edge chains (the design before: 0.539-0.571 ms and 10.2-11.0 us,
-// about 5.7 us not the chains, timed in the same runs).
+// about 5.7 us not the chains, timed in the same runs); before the
+// template.
 //
 // Frame layout: F is int32 [3, ha, wa] contiguous (K1: [N, 3, ha, wa]),
 // ha and wa multiples of 64.  For K1, U and V occupy the top-left
-// [ha/2, wa/2] of their planes; for K7, the left [ha, wa/2].  A cell
-// whose bits are 0 reads nothing.
+// [ha/2, wa/2] of their planes; for K7, the left [ha, wa/2] (4:4:0: the
+// top [ha/2, wa]).  A cell whose bits are 0 reads nothing.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -405,7 +419,7 @@ struct LfmMeta {
 };
 
 // K7's metadata: chain k's cell c0 + k step of a tile's shared maps
-// (32 cells each, 4 to a row).
+// (32 cells each, MW to a row: 4 at 4:2:2, 8 at 4:4:0).
 struct MapMeta {
   const int *bits, *mb, *lm, *hv;
   int c0, step, sh;
@@ -541,60 +555,85 @@ lf_frame_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ lfm,
 
 // ------------------------------------------------------------ K7
 
-// One plane's shared tile of K7: 72 rows of CS, the top strip (rows 0..7)
-// and the tile's 64 rows; in each, the left strip (columns 0..7) and the
-// tile's 32 columns (8..39).
-constexpr int kTile422 = 72 * CS;
+// K7's planes, maps and tile geometry for tiles of TH rows and TW columns
+// (the chroma of one luma superblock: 64 x 32 at 4:2:2, 32 x 64 at
+// 4:4:0).  A plane's shared tile is TH + 8 rows of SS: the top strip (rows
+// 0..7) and the tile's TH rows; in each, the left strip (columns 0..7) and
+// the tile's TW columns (8..TW + 7).  The tile holds 32 cells of each of
+// the five maps, MW to a row.
+template <int TH, int TW>
+struct ChromaTiles {
+  static constexpr int SS = TW + 9;  // row stride: TW + 8 + 1, so the rows
+                                     // of a vertical pass fall on distinct
+                                     // banks
+  static constexpr int TILE = (TH + 8) * SS;
+  static constexpr int MW = TW / 8;
+  static_assert(TH * TW == 2048 && TH <= 64 && TW <= 64,
+                "a tile is 32 cells, its vertical lanes fit the block");
 
-// K7's planes and maps, and the copies of a tile into shared memory.
-struct Chroma422 {
-  Plane pl[2];             // U, V: the left [ha, wa / 2] of planes 1, 2
-  const int16_t* maps[5];  // vbits, hbits, mb, lm, hv: [h / 8, mcols]
+  Plane pl[2];             // U, V: the top-left [rows * TH, cols * TW]
+  const int16_t* maps[5];  // vbits, hbits, mb, lm, hv: [rows * TH / 8,
+                           // mcols]
   int mcols;
 
-  // Starts the asynchronous copies of plane p's part of tile (r, c), its
-  // own 64 x 32 pixels, into the plane's shared tile s (rows 8..,
-  // columns 8..): column x, rows y0, y0 + dy, ...
-  __device__ void fetch(int* s, int r, int c, int p, int x, int y0,
-                        int dy) const {
+  // Starts the asynchronous copies of elements i0, i0 + di, ... (row-major)
+  // of plane p's part of tile (r, c), its own TH x TW pixels, into the
+  // plane's shared tile s (rows 8.., columns 8..).
+  __device__ void fetch(int* s, int r, int c, int p, int i0, int di) const {
     const int rs = pl[p].rs;
-    const int32_t* g = pl[p].p + static_cast<size_t>(r * 64) * rs + c * 32 + x;
-    int* d = s + 8 * CS + 8 + x;
+    const int32_t* g =
+        pl[p].p + static_cast<size_t>(r * TH) * rs + c * TW;
+    int* d = s + 8 * SS + 8;
 #pragma unroll 8
-    for (int y = y0; y < 64; y += dy)
-      __pipeline_memcpy_async(d + y * CS, g + static_cast<size_t>(y) * rs,
-                              sizeof(int));
+    for (int i = i0; i < TH * TW; i += di) {
+      const int y = i / TW, x = i % TW;
+      __pipeline_memcpy_async(d + y * SS + x, g + static_cast<size_t>(y) * rs
+                              + x, sizeof(int));
+    }
     __pipeline_commit();
   }
 
-  // Map entry i of tile (r, c): map i / 32, cell i % 32 (4 to a row).
+  // Map entry i of tile (r, c): map i / 32, cell i % 32 (MW to a row).
   __device__ int cell(int r, int c, int i) const {
     const int k = i & 31;
-    return __ldg(maps[i >> 5] + (r * 8 + (k >> 2)) * mcols + c * 4 + (k & 3));
+    return __ldg(maps[i >> 5] + (r * (TH / 8) + k / MW) * mcols + c * MW +
+                 k % MW);
   }
 
   // Writes pixel (y, x) of tile row r's shared tiles (y = 0 is 8 rows
   // above the tile row; x = 0 is column c0 of the plane) to plane p,
   // unless it lies above the plane.
   __device__ void put(int p, int r, int c0, int y, int x, int v) const {
-    const int gy = r * 64 - 8 + y;
+    const int gy = r * TH - 8 + y;
     if (gy >= 0)
       __stcg(pl[p].p + static_cast<size_t>(gy) * pl[p].rs + c0 + x, v);
   }
 };
 
+// K7 on tiles of TH x TW, both chroma planes: rows = ha / 64 tile rows and
+// cols = wa / 64 tile columns at either shape.  The vertical pass has 2 TH
+// row lanes (all 128 threads at 4:2:2; warps 0-1 at 4:4:0), TW / 8 chains
+// each; the horizontal pass 2 TW column lanes on warps 0-1, TH / 8 chains
+// each (a lane a thread at 4:2:2; two at 4:4:0), while warps 2-3 write back
+// and fetch.
+template <int TH, int TW>
 __global__ void __launch_bounds__(kThreads)
-lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
-              const int16_t* __restrict__ hb, const int16_t* __restrict__ mb,
-              const int16_t* __restrict__ lm, const int16_t* __restrict__ hv,
-              int* ws, int ha, int wa, int bd) {
-  __shared__ int st[2][2 * kTile422];  // [buffer][plane * kTile422 + ...]
-  __shared__ int sm[2][160];           // [buffer]: the tile's map cells
+lf_tiles_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
+                const int16_t* __restrict__ hb,
+                const int16_t* __restrict__ mb,
+                const int16_t* __restrict__ lm,
+                const int16_t* __restrict__ hv, int* ws, int ha, int wa,
+                int bd) {
+  using T = ChromaTiles<TH, TW>;
+  constexpr int SS = T::SS, TILE = T::TILE, MW = T::MW;
+  __shared__ int st[2][2 * TILE];  // [buffer][plane * TILE + ...]
+  __shared__ int sm[2][160];       // [buffer]: the tile's map cells
   __shared__ int s_ticket;
   const size_t n = static_cast<size_t>(ha) * wa;
-  const int wc = wa / 2, rows = ha / 64, cols = wc / 32, sh = bd - 8;
-  const Chroma422 K{{{F + n, wa, ha, wc}, {F + 2 * n, wa, ha, wc}},
-                    {vb, hb, mb, lm, hv}, wc / 8};
+  const int rows = ha / 64, cols = wa / 64, sh = bd - 8;
+  const int hc = rows * TH, wc = cols * TW;
+  const T K{{{F + n, wa, hc, wc}, {F + 2 * n, wa, hc, wc}},
+            {vb, hb, mb, lm, hv}, wc / 8};
   const int t = threadIdx.x;
   int* const progress = ws + 1;
   for (;;) {
@@ -605,11 +644,10 @@ lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
     const int r = s_ticket;
     if (r >= rows) return;
     // tile 0: its pixels and maps, and its left strip, left of the planes
-    K.fetch(st[0] + (t >> 6) * kTile422, r, 0, t >> 6, t & 31,
-            (t >> 5) & 1, 2);
+    K.fetch(st[0] + (t >> 6) * TILE, r, 0, t >> 6, t & 63, 64);
     for (int i = t; i < 160; i += kThreads) sm[0][i] = K.cell(r, 0, i);
-    for (int i = t; i < 2 * 64 * 8; i += kThreads)
-      st[0][(i >> 9) * kTile422 + (8 + ((i >> 3) & 63)) * CS + (i & 7)] = 0;
+    for (int i = t; i < 2 * TH * 8; i += kThreads)
+      st[0][(i / (TH * 8)) * TILE + (8 + (i >> 3) % TH) * SS + (i & 7)] = 0;
     int m[3];  // warps 2-3: the next tile's map entries t - 64 + 64 j
     for (int c = 0; c < cols; ++c) {
       int* const s = st[c & 1];          // tile c
@@ -617,22 +655,24 @@ lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
       const int* const cm = sm[c & 1];
       __pipeline_wait_prior(0);
       __syncthreads();  // tile c in s: pixels, left strip, maps
-      {  // vertical pass: 64 row lanes a plane, windows at columns 8 k
-        const int y = t & 63;
-        run_lane(s + (t >> 6) * kTile422 + (8 + y) * CS, 1, 4, bd,
-                 MapMeta{cm, cm + 64, cm + 96, cm + 128, (y >> 3) * 4, 1,
+      if (t < 2 * TH) {  // vertical pass: TH row lanes a plane, windows
+                         // at columns 8 k
+        const int y = t % TH;
+        run_lane(s + (t / TH) * TILE + (8 + y) * SS, 1, TW / 8, bd,
+                 MapMeta{cm, cm + 64, cm + 96, cm + 128, (y >> 3) * MW, 1,
                          sh});
       }
       __syncthreads();
 #ifndef VP9_LF422_NO_WRITEBACK
       // what the horizontal pass of (r+1, c-1) reads: the bottom 8 rows of
-      // tile c-1, its columns 25..31 as this vertical pass left them (the
+      // tile c-1, its last 7 columns as this vertical pass left them (the
       // left strip, s), the others as its horizontal pass did (o)
       if (c > 0) {
-        for (int i = t; i < 2 * 8 * 32; i += kThreads) {
-          const int p = i >> 8, y = 64 + ((i >> 5) & 7), x = i & 31;
-          const int* q = (x < 25 ? o + 8 : s - 24) + p * kTile422 + y * CS;
-          K.put(p, r, (c - 1) * 32, y, x, q[x]);
+        for (int i = t; i < 2 * 8 * TW; i += kThreads) {
+          const int p = i / (8 * TW), y = TH + (i / TW) % 8, x = i % TW;
+          const int* q =
+              (x < TW - 7 ? o + 8 : s - (TW - 8)) + p * TILE + y * SS;
+          K.put(p, r, (c - 1) * TW, y, x, q[x]);
         }
       }
 #endif
@@ -653,57 +693,67 @@ lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
                          // acquire
         // the top strip, 8 rows above the tile's own columns (0 above the
         // planes), through L2: row r-1 wrote it
-        int v[8];
+        constexpr int NJ = 2 * 8 * TW / 64;
+        int v[NJ];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {  // [plane][row][col]: 2 x 8 x 32
+        for (int j = 0; j < NJ; ++j) {  // [plane][row][col]: 2 x 8 x TW
           const int i = t + j * 64;
-          const int p = i >> 8, y = (i >> 5) & 7, x = i & 31;
+          const int p = i / (8 * TW), y = (i / TW) % 8, x = i % TW;
           v[j] = r > 0 ? __ldcg(K.pl[p].p +
-                                static_cast<size_t>(r * 64 - 8 + y) *
+                                static_cast<size_t>(r * TH - 8 + y) *
                                     K.pl[p].rs +
-                                c * 32 + x)
+                                c * TW + x)
                        : 0;
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const int i = t + j * 64;
-          s[(i >> 8) * kTile422 + ((i >> 5) & 7) * CS + 8 + (i & 31)] = v[j];
+          s[(i / (8 * TW)) * TILE + ((i / TW) % 8) * SS + 8 + i % TW] = v[j];
         }
         sync_warps01();
-        // horizontal pass: 32 column lanes a plane, windows at rows 8 k
-        const int x = t & 31;
-        run_lane(s + (t >> 5) * kTile422 + 8 + x, CS, 8, bd,
-                 MapMeta{cm + 32, cm + 64, cm + 96, cm + 128, x >> 3, 4, sh});
+        // horizontal pass: TW column lanes a plane, windows at rows 8 k
+#pragma unroll
+        for (int j = 0; j < 2 * TW / 64; ++j) {
+          const int l = t + 64 * j, x = l % TW;
+          run_lane(s + (l / TW) * TILE + 8 + x, SS, TH / 8, bd,
+                   MapMeta{cm + 32, cm + 64, cm + 96, cm + 128, x >> 3, MW,
+                           sh});
+        }
       } else {
         // warps 2-3 publish: the barrier above put every thread's stores
         // before this release, which warps 0-1 need not wait for
         if (t == 64) st_release(progress + r, 2 * c + 1);
         // warps 2-3 (U, V): the rest of tile c-1 goes back to the plane
-        // (rows 56..63 went before the release, and row r+1 changes them
-        // next), then its buffer takes tile c + 1
+        // (its bottom 8 rows went before the release, and row r+1 changes
+        // them next), then its buffer takes tile c + 1
         const int p = (t >> 5) - 2, lane = t & 31;
 #ifndef VP9_LF422_NO_WRITEBACK
-        if (c > 0) {  // column `lane` of tile c-1: rows 1..7 as its
-                      // horizontal pass left them, rows 8..63 as this
-                      // vertical pass did where it changed them
+        if (c > 0) {  // columns lane, lane + 32, ... of tile c-1: rows
+                      // 1..7 as its horizontal pass left them, rows
+                      // 8..TH-1 as this vertical pass did where it
+                      // changed them
           const int rs = K.pl[p].rs;
-          const int* q = o + p * kTile422 + 8 + lane;
-          const int* e = lane < 25 ? q : s + p * kTile422 + lane - 24;
-          int32_t* g = K.pl[p].p + static_cast<size_t>(r * 64) * rs +
-                       (c - 1) * 32 + lane;  // the tile row's first row
-          if (r > 0) {
 #pragma unroll
-            for (int y = 1; y < 8; ++y)
-              __stcg(g - static_cast<size_t>(8 - y) * rs, q[y * CS]);
-          }
+          for (int j = 0; j < TW / 32; ++j) {
+            const int x = lane + 32 * j;
+            const int* q = o + p * TILE + 8 + x;
+            const int* e = x < TW - 7 ? q : s + p * TILE + x - (TW - 8);
+            int32_t* g = K.pl[p].p + static_cast<size_t>(r * TH) * rs +
+                         (c - 1) * TW + x;  // the tile row's first row
+            if (r > 0) {
+#pragma unroll
+              for (int y = 1; y < 8; ++y)
+                __stcg(g - static_cast<size_t>(8 - y) * rs, q[y * SS]);
+            }
 #pragma unroll 8
-          for (int y = 8; y < 64; ++y)
-            __stcg(g + static_cast<size_t>(y - 8) * rs, e[y * CS]);
+            for (int y = 8; y < TH; ++y)
+              __stcg(g + static_cast<size_t>(y - 8) * rs, e[y * SS]);
+          }
         }
 #endif
         __syncwarp();  // the warp has read its plane of o
         if (c + 1 < cols) {
-          K.fetch(o + p * kTile422, r, c + 1, p, lane, 0, 1);
+          K.fetch(o + p * TILE, r, c + 1, p, lane, 32);
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
             const int i = t - 64 + 64 * j;
@@ -715,10 +765,10 @@ lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
       if (c + 1 < cols) {
         // the tile's right 8 columns are the next tile's left strip: no
         // other block touches them before the next vertical pass
-        for (int i = t; i < 2 * 64 * 8; i += kThreads) {
-          const int q = (i >> 9) * kTile422 + (8 + ((i >> 3) & 63)) * CS +
-                        (i & 7);
-          o[q] = s[q + 32];
+        for (int i = t; i < 2 * TH * 8; i += kThreads) {
+          const int q =
+              (i / (TH * 8)) * TILE + (8 + (i >> 3) % TH) * SS + (i & 7);
+          o[q] = s[q + TW];
         }
         if (t >= 64) {
 #pragma unroll
@@ -729,10 +779,11 @@ lf_422_kernel(int32_t* __restrict__ F, const int16_t* __restrict__ vb,
         }
       } else {
 #ifndef VP9_LF422_NO_WRITEBACK
-        // the last tile goes back whole: rows 1..71 of its columns
-        for (int i = t; i < 2 * 71 * 32; i += kThreads) {
-          const int p = i / 2272, y = 1 + (i % 2272) / 32, x = i & 31;
-          K.put(p, r, c * 32, y, x, s[p * kTile422 + y * CS + 8 + x]);
+        // the last tile goes back whole: rows 1..TH + 7 of its columns
+        constexpr int N = (TH + 7) * TW;
+        for (int i = t; i < 2 * N; i += kThreads) {
+          const int p = i / N, y = 1 + (i % N) / TW, x = i % TW;
+          K.put(p, r, c * TW, y, x, s[p * TILE + y * SS + 8 + x]);
         }
 #endif
         __syncthreads();  // every thread's stores come before the release
@@ -774,24 +825,37 @@ extern "C" int vp9_lf_frames(void* F, const void* lfm, long long lfm_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Filters the chroma planes of a 4:2:2 frame F [3, ha, wa] in place (the
-// left [ha, wa / 2] of planes 1 and 2); vb, hb, mb, lm, hv are int16
-// [ha / 8, wa / 16] each.  Workspace (1 + ha / 64 entries), stream and
-// result as vp9_lf_frames.
+// Filters the chroma planes of a 4:2:2 (ss_x, ss_y = 1, 0) or 4:4:0 (0, 1)
+// frame F [3, ha, wa] in place (the top-left [ha >> ss_y, wa >> ss_x] of
+// planes 1 and 2); vb, hb, mb, lm, hv are int16 [ha >> ss_y >> 3, wa >>
+// ss_x >> 3] each.  Workspace (1 + ha / 64 entries), stream and result as
+// vp9_lf_frames; another subsampling is cudaErrorInvalidValue, with no
+// launch.
 extern "C" int vp9_lf_plane_tiles(void* F, const void* vb, const void* hb,
                                   const void* mb, const void* lm,
                                   const void* hv, void* ws, int ha, int wa,
-                                  int bd, void* stream, int* launched) {
+                                  int bd, int ss_x, int ss_y, void* stream,
+                                  int* launched) {
   *launched = 0;
+  if (ss_x + ss_y != 1 || ss_x * ss_y != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int rows = ha / 64;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(ws, 0, (1 + rows) * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lf_422_kernel<<<rows, kThreads, 0, st>>>(
-      static_cast<int32_t*>(F), static_cast<const int16_t*>(vb),
-      static_cast<const int16_t*>(hb), static_cast<const int16_t*>(mb),
-      static_cast<const int16_t*>(lm), static_cast<const int16_t*>(hv),
-      static_cast<int*>(ws), ha, wa, bd);
+  auto* f = static_cast<int32_t*>(F);
+  auto* v = static_cast<const int16_t*>(vb);
+  auto* h = static_cast<const int16_t*>(hb);
+  auto* b = static_cast<const int16_t*>(mb);
+  auto* l = static_cast<const int16_t*>(lm);
+  auto* e = static_cast<const int16_t*>(hv);
+  int* w = static_cast<int*>(ws);
+  if (ss_x)
+    lf_tiles_kernel<64, 32><<<rows, kThreads, 0, st>>>(f, v, h, b, l, e, w,
+                                                       ha, wa, bd);
+  else
+    lf_tiles_kernel<32, 64><<<rows, kThreads, 0, st>>>(f, v, h, b, l, e, w,
+                                                       ha, wa, bd);
   ++*launched;
   return static_cast<int>(cudaGetLastError());
 }

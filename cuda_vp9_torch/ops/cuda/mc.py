@@ -412,10 +412,12 @@ def mc_table(Fbuf, Rbuf, pool, kernels, flats, classes, mask, active,
         words = -(-mask.mi_cols // 16)
         if mask.off < 0 or mask.off + mask.mi_rows * words > L \
                 or mask.mi_cols <= 0 or mask.mi_rows <= 0 \
-                or (mask.ssx, mask.ssy) not in ((1, 1), (0, 0), (1, 0)) \
+                or (mask.ssx, mask.ssy) not in ((1, 1), (0, 0), (1, 0),
+                                                (0, 1)) \
                 or mask.mi_rows * 8 > ha or mask.mi_cols * 8 > wa:
             raise ValueError("mc_frame: mi_mask must lie in the flats' rows "
-                             "and the frame, chroma 4:2:0, 4:4:4 or 4:2:2")
+                             "and the frame, chroma 4:2:0, 4:4:4, 4:2:2 or "
+                             "4:4:0")
         # the mask phase moves F and R 4 pixels (16 bytes) at a time
         if wa % 4 or Fbuf.data_ptr() % 16 or Rbuf.data_ptr() % 16:
             raise ValueError("mc_frame: with a mask, wa must be a multiple "

@@ -1,9 +1,10 @@
 """One VP9 frame step on torch tensors.
 
 Counterpart of `cuda_vp9_tpu/runtime/fused.py` (`make_frame_step`,
-`get_frame_step`) for the slice this package covers: bit depths 8, 10 and
-12, chroma 4:2:0, 4:4:4 and 4:2:2, and lossless frames (the WHT on
-bucket tx0, the only bucket of a lossless layout).  It reads the flat
+`get_frame_step`) for every frame the JAX step takes and the ones that
+JAX leaves to its host oracle: bit depths 8, 10 and 12, chroma 4:2:0,
+4:4:4, 4:2:2 and 4:4:0, scaled references at each of them, and lossless
+frames (the WHT on bucket tx0, the only bucket of a lossless layout).  It reads the flat
 int16 wire of `runtime/pack.py` or of the native packer, the same bytes
 the JAX step reads, uploaded page-compacted (`runtime/upload.py`) and
 rebuilt on the device as the JAX step's page-tier branch does
@@ -38,8 +39,9 @@ Above 8 bits the coefficients ship as (lo, hi) int16 pairs and the
 transforms run in the int32 WRAPLOW domain; the ring is int16.  The loop
 filter follows the chroma format: 4:2:0 is one `lf_frame` call; 4:4:4
 filters each chroma plane through the kernel's luma path on the chroma
-cell grid; 4:2:2 filters the chroma planes with `lf_chroma_422`, in the
-order of the luma superblocks (fused.py:638-682).
+cell grid; 4:2:2 and 4:4:0 filter the chroma planes with
+`lf_chroma_tiles`, in the order of the luma superblocks (fused.py:638-682
+for 4:2:2; VP9's `vp9_filter_block_plane_non420` for both).
 
 The pool canvas [pha, pwa] may exceed the frame canvas [ha, wa] when
 scaled references are live; each slot then holds its frame in the
@@ -70,7 +72,7 @@ import torch
 
 from .. import models as M
 from ..ops.cuda.intra import intra_pass, intra_pass_batched
-from ..ops.cuda.lf422 import lf_chroma_422
+from ..ops.cuda.lf422 import lf_chroma_tiles
 from ..ops.cuda.loopfilter import lf_frame, lf_frames
 from ..ops.cuda.mc import Mask, mc_class, mc_frame
 from ..ops.cuda.residual import Bucket, residual_frame
@@ -83,26 +85,13 @@ I32 = torch.int32
 # (tile size, misc slot of the chunk count, misc slot of the first
 # compound-average chunk) per MC class, in the JAX step's order
 MC_CLASSES = ((4, 0, 23), (8, 1, 24), (16, 2, 25), (32, 33, 34))
-# chroma subsampling (ss_x, ss_y) the step runs: 4:2:0, 4:4:4, 4:2:2
-CHROMA_FORMATS = ((1, 1), (0, 0), (1, 0))
+# chroma subsampling (ss_x, ss_y) the step runs: 4:2:0, 4:4:4, 4:2:2,
+# 4:4:0
+CHROMA_FORMATS = ((1, 1), (0, 0), (1, 0), (0, 1))
 
 
 def cdiv(a, b):
     return (a + b - 1) // b
-
-
-def require_slice(ss=(1, 1), scaled: bool = False) -> None:
-    """Raise NotImplementedError, naming the ROADMAP queue-1 item, for a
-    frame outside the slice this package ports; such a frame never goes
-    to the host oracle."""
-    if tuple(ss) not in CHROMA_FORMATS:
-        raise NotImplementedError(
-            f"chroma subsampling {tuple(ss)} (4:4:0): ROADMAP queue 1 "
-            "item 9")
-    if scaled and tuple(ss) != (1, 1):
-        raise NotImplementedError(
-            "scaled references with chroma other than 4:2:0: ROADMAP "
-            "queue 1 item 8")
 
 
 def frame_buffer(ha: int, wa: int, device) -> torch.Tensor:
@@ -188,8 +177,8 @@ def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
     ha, wa = F.shape[1:]
     ssx, ssy = ss
     hcc, wcc = ha >> ssy, wa >> ssx
-    # the lfm of a 4:4:4 or 4:2:2 frame ships zeroed chroma fields, so
-    # this call leaves the chroma planes as they are; they are filtered
+    # the lfm of a 4:4:4, 4:2:2 or 4:4:0 frame ships zeroed chroma fields,
+    # so this call leaves the chroma planes as they are; they are filtered
     # after it
     lf_frame(F, seg("lfm", dtype=torch.int16), thr, lf_on, mi_rows=mi_rows,
              mi_cols=mi_cols, bd=bd)
@@ -207,9 +196,11 @@ def loop_filter(F, seg, lf_on: int, mi_rows: int, mi_cols: int, bd: int,
             lf_frame(Cp, lfm_c, thr, lf_on, mi_rows=rc, mi_cols=cc, bd=bd)
             F[p, :hcc, :wcc] = Cp[0, :hcc, :wcc]
     else:
-        # 4:2:2: both chroma planes in place, 64x32 tiles in luma-SB order
-        lf_chroma_422(F, *(seg(nm, dtype=torch.int16) for nm in (
-            "lfw_v", "lfw_h", "lfw_mb", "lfw_lm", "lfw_hv")), lf_on, bd=bd)
+        # 4:2:2 and 4:4:0: both chroma planes in place, in tiles of one
+        # luma superblock's chroma (64x32 or 32x64), in luma-SB order
+        lf_chroma_tiles(F, *(seg(nm, dtype=torch.int16) for nm in (
+            "lfw_v", "lfw_h", "lfw_mb", "lfw_lm", "lfw_hv")), lf_on, bd=bd,
+            ss=ss)
 
 
 def upload(up: Uploader, flats, aux=None):
@@ -325,7 +316,6 @@ def get_frame_step(mi_rows: int, mi_cols: int, tier: str,
     frame's (scaled references).  Uncached: the caller keeps the result,
     because the native packer caches per layout object."""
     ss = tuple(ss)
-    require_slice(ss, tier == "scaled")
     caps = pack.compute_caps(mi_rows, mi_cols, tier, lossless,
                              pool_ha=pool_ha, ss=ss)
     layout = pack.build_layout(caps, mi_rows, mi_cols, lossless, bd, ss=ss)

@@ -347,13 +347,14 @@ def build_layout(caps, mi_rows, mi_cols, lossless, bd: int = 8,
         sbr_c, sbc_c = cdiv(rc, 8), cdiv(cc, 8)
         L.add("lfm_c", (cdiv(sbr_c, LF_K) * LF_K * sbc_c, 2, 128))
     elif ss != (1, 1):
-        # 4:2:2 chroma: VP9 deblocks it in 32-px-wide slices per LUMA
-        # superblock, an order the 64-px kernel cannot express — the
-        # sequential-tile path (ops/device/lf_wave.py) replays it with
-        # per-cell mask bitfields + threshold maps
+        # 4:2:2 and 4:4:0 chroma: VP9 deblocks it per LUMA superblock, in
+        # 32x64 (4:2:2) or 64x32 (4:4:0) pixel slices, an order the 64-px
+        # kernel cannot express — the sequential-tile path
+        # (ops/device/lf_wave.py) replays it with per-cell mask bitfields
+        # + threshold maps on the chroma plane's own cell grid
         ha_ = ((mi_rows + 7) & ~7) * 8
         wa_ = ((mi_cols + 7) & ~7) * 8
-        cr, ccc = ha_ // 8, (wa_ >> ss[0]) // 8
+        cr, ccc = (ha_ >> ss[1]) // 8, (wa_ >> ss[0]) // 8
         for nm in ("lfw_v", "lfw_h", "lfw_mb", "lfw_lm", "lfw_hv"):
             L.add(nm, (cr, ccc))
     L.add("misc", (48,))
@@ -534,6 +535,33 @@ def _blocks_arr(plan):
     return arr
 
 
+def _round_q4(v):
+    q = np.where(v >= 0, v + 2, v - 2)
+    return np.where(q >= 0, q // 4, -((-q) // 4))
+
+
+def _round_q2(v):
+    q = np.where(v >= 0, v + 1, v - 1)
+    return np.where(q >= 0, q // 2, -((-q) // 2))
+
+
+def split_mv(bmv, j, sx: int, sy: int):
+    """The MVs [n, 2] of 4x4 block j of a plane with subsampling (sx, sy)
+    in sub-8x8 blocks whose four luma MVs are bmv [n, 4, 2]
+    (average_split_mvs, vp9_reconinter.c:112): direct at 4:4:4 and on
+    luma, the x-pair average at 4:2:2, the y-pair average at 4:4:0, the
+    4-way average at 4:2:0.  j is the PLANE-raster index (the reference
+    calls average_split_mvs with i = y * n4w + x per plane), so at 4:2:2
+    chroma block 1 averages luma blocks 1 and 2: a normative quirk (see
+    ops/ref/recon.py:222).  The scaled and the unscaled branches of
+    `_mc_tiles_vectorized` both take it."""
+    if not (sx or sy):
+        return bmv[:, j]
+    if sx and sy:
+        return _round_q4(bmv.sum(axis=1))
+    return _round_q2(bmv[:, j] + bmv[:, j + (1 if sx else 2)])
+
+
 def _mc_tiles_vectorized(plan, refs, slot_map):
     """Emit MC tile rows [n, 12] per tile class, vectorized over blocks
     (dec_build_inter_predictors parity).  Sub-8x8 blocks (split MVs with
@@ -647,22 +675,13 @@ def _mc_tiles_vectorized(plan, refs, slot_map):
 
     # ---- sub-8x8 blocks (split MVs), vectorized per (bwl, bhl) combo.
     # Chroma MVs average the covering luma sub-MVs per the plane's
-    # subsampling (average_split_mvs, vp9_reconinter.c:112: direct at
-    # 4:4:4, pair average at 4:2:2, 4-way at 4:2:0).
+    # subsampling (`split_mv`, with its 4:2:2 quirk; the scaled branch
+    # below takes the same rule).
     sel = inter & ~big
     if sel.any():
         idx_all = np.nonzero(sel)[0]
         compound = mi.ref[br, bc, 1].astype(np.int32) > C.INTRA_FRAME
         filt_all = mi.interp_filter[br, bc].astype(np.int64)
-
-        def round_q4(v):
-            q = np.where(v >= 0, v + 2, v - 2)
-            return np.where(q >= 0, q // 4, -((-q) // 4))
-
-        def round_q2(v):
-            q = np.where(v >= 0, v + 1, v - 1)
-            return np.where(q >= 0, q // 2, -((-q) // 2))
-
         for wl, hl in sorted(set(zip(bwl[idx_all].tolist(),
                                      bhl[idx_all].tolist()))):
             for ref_i in range(2):
@@ -689,20 +708,7 @@ def _mc_tiles_vectorized(plan, refs, slot_map):
                             cwl[mk], chl[mk] = crop[(k - 1, plane)]
                     for y in range(n4h):
                         for x in range(n4w):
-                            # PLANE-raster block index (average_split_mvs
-                            # is called with i = y*n4w + x per plane;
-                            # at 4:2:2 chroma block 1 therefore averages
-                            # luma blocks 1 and 2 — a normative quirk,
-                            # see ops/ref/recon.py:222)
-                            j = y * n4w + x
-                            if not plane or (sx | sy) == 0:
-                                mvv = bmv[:, j]      # 4:4:4: direct
-                            elif sx and sy:
-                                mvv = round_q4(bmv.sum(axis=1))
-                            elif sx:                 # 4:2:2: x-pair avg
-                                mvv = round_q2(bmv[:, j] + bmv[:, j + 1])
-                            else:                    # 4:4:0: y-pair avg
-                                mvv = round_q2(bmv[:, j] + bmv[:, j + 2])
+                            mvv = split_mv(bmv, y * n4w + x, sx, sy)
                             dx = ((c * 8) >> sx) + 4 * x
                             dy = ((r * 8) >> sy) + 4 * y
                             scol = mvv[:, 1] << (1 - sx)
@@ -719,10 +725,6 @@ def _mc_tiles_vectorized(plan, refs, slot_map):
     if sc0.any() or sc1.any():
         compound = mi.ref[br, bc, 1].astype(np.int64) > C.INTRA_FRAME
         filt_all = mi.interp_filter[br, bc].astype(np.int64)
-
-        def round_q4(v):
-            q = np.where(v >= 0, v + 2, v - 2)
-            return np.where(q >= 0, q // 4, -((-q) // 4))
 
         def emit_scaled(idx, ref_i, mv_rc, x_off, y_off, w, h, plane,
                         sx, sy):
@@ -814,7 +816,6 @@ def _mc_tiles_vectorized(plan, refs, slot_map):
                                     plane, sx, sy)
             mb_sub = inter & ~big & mbase
             if mb_sub.any():
-                assert ss == (1, 1), "fused pack is 4:2:0-only"
                 for wl, hl in sorted(set(zip(bwl[mb_sub].tolist(),
                                              bhl[mb_sub].tolist()))):
                     mm = mb_sub & (bwl == wl) & (bhl == hl)
@@ -822,17 +823,13 @@ def _mc_tiles_vectorized(plan, refs, slot_map):
                     bmv = mi.bmi_mv[br[idx], bc[idx], :, ref_i] \
                         .astype(np.int64)
                     for plane in range(3):
-                        sx, sy = (1, 1) if plane else (0, 0)
+                        sx = ss[0] if plane else 0
+                        sy = ss[1] if plane else 0
                         n4w = (1 << wl) >> sx
                         n4h = (1 << hl) >> sy
                         for y in range(n4h):
                             for x in range(n4w):
-                                if plane:
-                                    mvv = np.stack(
-                                        [round_q4(bmv[:, :, 0].sum(1)),
-                                         round_q4(bmv[:, :, 1].sum(1))], 1)
-                                else:
-                                    mvv = bmv[:, y * 2 + x]
+                                mvv = split_mv(bmv, y * n4w + x, sx, sy)
                                 emit_scaled(idx, ref_i, mvv, 4 * x, 4 * y,
                                             4, 4, plane, sx, sy)
     return out
@@ -1037,8 +1034,8 @@ def _pack_lf(plan, caps, layout, buf):
         layout.view(buf, "lfm_c")[:] = pack_lfm_fields(
             lvl_uv, vuv, huv, z1, zm, zm, rc, cc)
         return 1
-    # 4:2:2: per-cell mask bitfields + thresholds for the sequential
-    # tile path (ops/device/lf_wave.py)
+    # 4:2:2 and 4:4:0: per-cell mask bitfields + thresholds for the
+    # sequential tile path (ops/device/lf_wave.py)
     mb_t, lm_t, hv_t = thr
     lv = np.clip(lvl_uv, 0, 63)
     R0, C0 = lvl_uv.shape

@@ -21,13 +21,13 @@ refreshes are re-uploaded before a later device frame reads them
 references, kept across frames until a keyframe changes it, or the bit
 depth or chroma format changes.
 
-The slice: bit depths 8, 10 and 12; chroma 4:2:0, 4:4:4 and 4:2:2;
-lossless frames; scaled references with 4:2:0 chroma.  4:2:0 frames pack
-with the C++ packer, the others with `runtime/pack.pack_frame`, as in
-JAX.  Frames outside the slice (4:4:0, scaled references with other
-chroma) raise NotImplementedError naming the ROADMAP item, where JAX
-sends them to its host oracle; they never go to the host here.  The flat
-goes up page-compacted from pinned memory through the recon's
+Every VP9 frame runs on the device: bit depths 8, 10 and 12; chroma
+4:2:0, 4:4:4, 4:2:2 and 4:4:0; lossless frames; scaled references at every
+chroma format.  JAX sends 4:4:0 frames and scaled references with other
+chroma than 4:2:0 to its host oracle; here only references outside the
+spec's scale range and tier overflows go there.  4:2:0 frames pack with
+the C++ packer, the others with `runtime/pack.pack_frame`, as in JAX.  The
+flat goes up page-compacted from pinned memory through the recon's
 `upload.Uploader` (`TpuReconFused._compact`, without its page tiers), and
 the step rebuilds it on the device.  Spans (`utils/spans.py`): vp9.pack
 around the pack, vp9.readback around the fetch of the ring rows, and the
@@ -138,9 +138,9 @@ class TorchRecon:
 
     @staticmethod
     def _can_run_on_device(hdr, refs) -> bool:
-        """TpuReconFused._can_run_on_device (pipeline.py:322-346) for a
-        frame inside the slice (require_slice): references outside the
-        spec's scale range go to the host oracle."""
+        """TpuReconFused._can_run_on_device (pipeline.py:322-346) without
+        its chroma-format tests: only references outside the spec's scale
+        range go to the host oracle."""
         return all(
             ScaleFactors(rb.width, rb.height, hdr.width, hdr.height).is_valid()
             for rb in refs.values() if rb is not None)
@@ -183,8 +183,6 @@ class TorchRecon:
 
     def __call__(self, plan, refs):
         hdr = plan.hdr
-        fused.require_slice((hdr.subsampling_x, hdr.subsampling_y),
-                            self._scaled(hdr, refs))
         planes = None
         if self._can_run_on_device(hdr, refs):
             planes = self._recon_device(plan, refs)

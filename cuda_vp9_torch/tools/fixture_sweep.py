@@ -5,13 +5,14 @@ Usage:
          [--fixtures DIR] [--only NAME,...]
 
 Decodes each VP9 stream of DIR/*.ivf (default: the checkout's
-tests/fixtures) and DIR/large/hb01_1920x1080_10b.ivf through the codec
-API (`profile_decode.decode`: vpx_codec_dec_init with
-vp9_dx_torch(device)), every frame, and holds each frame's MD5 against
-the stream's golden .md5 file.  VP8 streams are skipped by their IVF
-fourcc.  `--only` takes stream names (the file stems) or their first
-four characters (`mv01`).  `--device cpu` runs the kernels'
-plain versions.
+tests/fixtures) and the streams of `LARGE` in DIR/large/ (hb01, the
+4:4:0 streams p1_05, p1_06 and p3_02, and the scaled 4:4:4 and 4:2:2
+streams sc02 and sc03) through the codec API (`profile_decode.decode`:
+vpx_codec_dec_init with vp9_dx_torch(device)), every frame, and holds
+each frame's MD5 against the stream's golden .md5 file.  VP8 streams are
+skipped by their IVF fourcc.  `--only` takes stream names (the file
+stems) or their first four characters (`mv01`).  `--device cpu` runs the
+kernels' plain versions.
 
 Per stream it prints the frames decoded and expected, the first frame
 whose MD5 differs, frames_on_host, frames_on_device and frames_wide of
@@ -19,11 +20,10 @@ the stream's TorchRecon, each kernel module's `launches` and
 `plain_calls` over the stream, and its wall seconds; then a total line
 (streams, frames, mismatches, seconds).  It exits 1 when a stream
 mismatches, decodes fewer or more frames than its .md5 lists, fails a
-decode (a frame outside the port raises NotImplementedError, which the
-codec API reports as a decode error naming its ROADMAP item), sends a
-frame to the host other than one whose reference lies outside the spec's
-scale range (as the JAX package does: counted in frames_out_of_scale and
-named in the stream's line), or, on a CUDA device, runs a plain version.
+decode, sends a frame to the host other than one whose reference lies
+outside the spec's scale range (as the JAX package does: counted in
+frames_out_of_scale and named in the stream's line), or, on a CUDA
+device, runs a plain version.
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ from ..ops.cuda import residual as RS
 from .profile_decode import decode
 
 FIXTURES = Path(__file__).resolve().parents[2] / "tests" / "fixtures"
-LARGE = ("large/hb01_1920x1080_10b",)
+LARGE = ("large/hb01_1920x1080_10b", "large/p1_05_176x144_440",
+         "large/p1_06_640x360_440", "large/p3_02_176x144_440_10b",
+         "large/sc02_176x144_444_scaled", "large/sc03_176x144_422_scaled")
 KERNELS = (PG, RS, MC, IN, LF, L4)
 
 

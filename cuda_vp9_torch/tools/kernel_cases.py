@@ -28,7 +28,7 @@ classes and (one stream) the scaled class mcs as the packer lays them
 out (records, chunk headers, the chunk counts and first compound chunks
 in misc), and an mi_mask, over a random pool whose canvas may exceed
 the frame's and whose slots have random crops below it; destinations
-on the tile grid of planes 0..2 of a 4:2:0, 4:4:4 or 4:2:2 layout,
+on the tile grid of planes 0..2 of a 4:2:0, 4:4:4, 4:2:2 or 4:4:0 layout,
 distinct within a landing phase and drawn for each class on its own (so
 two phases may land on the same pixels); sources inside, near and past
 the crop on every side (negative sr and sc), every filter and phase, q4
@@ -295,6 +295,7 @@ MC_CASES = [
     (8, (1, 1), 144, 176, (32, 48), 1, None, True),
     (10, (1, 1), 64, 64, (0, 0), 3, (16, 8, 4, 4, 8), False),
     (8, (1, 1), 96, 96, (0, 0), 4, None, False),
+    (10, (0, 1), 96, 64, (8, 16), 1, (16, 8, 4, 4, 8), True),
 ]
 
 

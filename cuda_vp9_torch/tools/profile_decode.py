@@ -18,7 +18,7 @@ to warm up (kernel build, allocator, cached steps), then:
     covers ("outside spans"), the upload's flats, flats sent dense and
     bytes (dense and sent), and the kernels' counters over the pass: the
     launches of the page expansion (with the pages they wrote), of the
-    loop filter (lf_frame, lf_chroma_422), of the residual kernel (with
+    loop filters (lf_frame, lf_chroma_tiles), of the residual kernel (with
     the buckets they ran), of the intra kernel (with the chunks they ran)
     and of the MC kernel (with the phases they ran, and the launches that
     ran its scaled class and its mask phase), with the host calls of
@@ -261,7 +261,7 @@ def main(argv=None):
     print(f"  upload: {up.frames} flats, {up.dense_frames} sent dense, "
           f"{up.flat_bytes} bytes dense, {up.sent_bytes} sent")
     print(f"  kernel launches: expand_pages {PG.launches} ({PG.pages} "
-          f"pages), lf_frame {LF.launches}, lf_chroma_422 "
+          f"pages), lf_frame {LF.launches}, lf_chroma_tiles "
           f"{L4.launches}, residual {RS.launches} ({RS.buckets} buckets), "
           f"mc {MC.launches} ({MC.phases} phases; {MC.scaled_calls} with "
           f"the scaled class, {MC.mask_calls} with the mask) in "

@@ -11,22 +11,28 @@ the tight tier and escalate to the wide one (io01), 10- and 12-bit
 4:2:0 (p2_01, p2_02, p2_04), 4:4:4 at 8 and 10 bits (p1_01, p3_01),
 4:2:2 (p1_02, p1_04) and lossless frames (ll01 intra, ll02 inter: the
 WHT).  Each high-bit-depth or non-4:2:0 stream is decoded up to its first
-frame with the loop filter on, or its first inter frame.  Frames outside
-the port (4:4:0, scaled references with chroma other than 4:2:0) raise
-NotImplementedError naming their ROADMAP item.  A subprocess decodes
+frame with the loop filter on, or its first inter frame.  The 4:4:0
+streams (large/p1_05 8-bit, large/p3_02 10-bit) and the scaled-reference
+4:4:4 and 4:2:2 streams (large/sc02, large/sc03) are decoded whole, and
+the packer's scaled sub-8x8 branch is held against the JAX package's host
+oracle at 4:4:4 and 4:2:2 (frame 1 of p1_01 and p1_02, with references
+made 8 columns wider).  A subprocess decodes
 kf02 and p2_01 through `python -m cuda_vp9_torch.tools.vpxdec` with `jax`
 and `cuda_vp9_tpu` blocked, as on a machine without them.  The 1080p
-10-bit stream hb01 is decoded (frame 0) in the slow tier."""
+10-bit stream hb01 (frame 0) and the 640x360 4:4:0 stream p1_06 are
+decoded in the slow tier."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from cuda_vp9_torch import convert
+from cuda_vp9_torch.decoder.constants import BLOCK_8X8
 from cuda_vp9_torch.decoder.frame import (NativeVp9Decoder,
                                           native_decode_stream_md5)
 from cuda_vp9_torch.runtime.pipeline import TorchRecon
@@ -72,37 +78,162 @@ def test_torch_recon_md5(name, n):
         assert rec.frames_wide > 0, "no frame escalated to the wide tier"
 
 
-def _as_440(hdr):
-    hdr.subsampling_y = 1            # 4:4:4 -> 4:4:0
+# (stream in tests/fixtures/large, what each one needs of the port, the
+# frames that need it): the 4:4:0 streams filter every frame's chroma
+# through the 4:4:0 twin of the tile filter, and the scaled 4:4:4 and 4:2:2
+# streams run the scaled MC class (mcs) on their three inter frames of
+# another size than the keyframe (the 176x144 one is unscaled)
+LARGE = [("large/p1_05_176x144_440", "lf440", 10),
+         ("large/p3_02_176x144_440_10b", "lf440", 6),
+         ("large/sc02_176x144_444_scaled", "mcs", 3),
+         ("large/sc03_176x144_422_scaled", "mcs", 3)]
 
 
-def _scaled_refs(hdr):
-    if not hdr.frame_is_intra_only:
-        hdr.width += 8               # every reference now has another size
+@pytest.mark.parametrize("name,needs,n", LARGE, ids=[s[0][6:] for s in LARGE])
+def test_torch_recon_md5_whole(name, needs, n, monkeypatch):
+    """Every frame on the device (here the twins), MD5-exact, and through
+    the module the stream exists for: the 4:4:0 tile filter on each frame
+    (each has a level), or the scaled class on each scaled frame."""
+    from cuda_vp9_torch.ops.cuda import lf422 as L4
+    from cuda_vp9_torch.ops.cuda import mc as MC
+    calls = {"mcs": 0, "lf440": 0}
+    mcs_pass, tiles_plain = MC.mcs_pass, L4.lf_chroma_tiles_plain
 
+    def count_mcs(*a, **k):
+        calls["mcs"] += 1
+        return mcs_pass(*a, **k)
 
-@pytest.mark.parametrize("name,n,patch,item", [
-    ("p1_01_176x144_444", 1, _as_440, "item 9"),
-    ("p1_01_176x144_444", 2, _scaled_refs, "item 8")],
-    ids=["440", "scaled_444"])
-def test_frames_outside_the_slice_raise(name, n, patch, item):
-    """4:4:0 chroma and scaled references with chroma other than 4:2:0
-    raise, naming their ROADMAP item, and never go to the host.  No
-    fixture is 4:4:0 or scales a 4:4:4 reference, so both cases change
-    the header of p1_01 (8-bit 4:4:4) after the parse."""
+    def count_tiles(*a, ss, **k):
+        calls["lf440"] += tuple(ss) == (0, 1)
+        return tiles_plain(*a, ss=ss, **k)
+
+    monkeypatch.setattr(MC, "mcs_pass", count_mcs)
+    monkeypatch.setattr(L4, "lf_chroma_tiles_plain", count_tiles)
+    golden = _golden(name)
     rec = TorchRecon("cpu")
+    got = [d for _, d in native_decode_stream_md5(
+        str(FIXTURES / f"{name}.ivf"), recon_fn=rec, lag=0)]
+    assert got == golden
+    assert rec.frames_on_host == 0 and rec.frames_on_device == len(golden)
+    assert calls[needs] == n
+
+
+@pytest.mark.slow
+def test_p1_06_440_matches_golden():
+    """Slow: the 640x360 4:4:0 stream whole through the plain torch step on
+    the CPU (about 20 s)."""
+    rec = TorchRecon("cpu")
+    got = [d for _, d in native_decode_stream_md5(
+        str(FIXTURES / "large" / "p1_06_640x360_440.ivf"), recon_fn=rec,
+        lag=0)]
+    assert got == _golden("large/p1_06_640x360_440")
+    assert rec.frames_on_host == 0
+
+
+def test_scaled_tier_at_444_escalates_not_truncates(monkeypatch):
+    """The scaled tier's mcs capacity at 4:4:4 holds every 4x4 cell of
+    all three full-size planes predicted twice (compound); a frame that
+    overflows a smaller capacity goes to the host oracle whole (its MD5
+    still exact), never into a truncated flat."""
+    from cuda_vp9_torch.runtime import pack
+    for mi_rows, mi_cols in ((18, 22), (25, 30)):
+        caps = pack.compute_caps(mi_rows, mi_cols, "scaled", ss=(0, 0))
+        cells = (2 * mi_rows) * (2 * mi_cols)
+        assert caps["mcs"] * pack.CHUNK_MCS >= 2 * 3 * cells
+        assert caps["mcs"] > pack.compute_caps(mi_rows, mi_cols, "scaled",
+                                               ss=(1, 1))["mcs"]
+    compute_caps = pack.compute_caps
+
+    def small(*a, **k):
+        caps = compute_caps(*a, **k)
+        if caps["tier"] == "scaled":
+            caps["mcs"] = 2
+        return caps
+
+    monkeypatch.setattr(pack, "compute_caps", small)
+    name = "large/sc02_176x144_444_scaled"
+    rec = TorchRecon("cpu")
+    got = [d for _, d in native_decode_stream_md5(
+        str(FIXTURES / f"{name}.ivf"), recon_fn=rec, lag=0)]
+    assert got == _golden(name)
+    assert (rec.frames_on_host, rec.frames_on_device) == (3, 2)
+    assert rec.frames_out_of_scale == 0 and pack.last_overflow[0] == "mcs"
+
+
+def _wider(rb, cls):
+    """A copy of RefBuffer rb 8 luma columns wider: the 8 (chroma: 8 >>
+    ss_x) columns past its crop mirror the last ones."""
+    planes = []
+    for p, pl in enumerate(rb.planes):
+        sx = rb.ss_x if p else 0
+        cw, e = (rb.width + sx) >> sx, 8 >> sx
+        a = np.array(pl, copy=True)
+        a[:, cw:cw + e] = a[:, cw - e:cw][:, ::-1]
+        planes.append(a)
+    return cls(planes, rb.width + 8, rb.height, rb.bit_depth, rb.ss_x,
+               rb.ss_y)
+
+
+def _frame_with_wider_refs(name, k, decoder, recon, last):
+    """Decode `name` with `decoder(recon_fn=...)`, frames before k through
+    the host oracle module `recon`; frame k through `last(plan, refs)`
+    with every reference 8 columns wider (_wider).  Returns (frame k's
+    header, its planes, its sub-8x8 inter blocks)."""
+    from cuda_vp9_torch.containers import IvfReader
+    out = {}
+
+    class Done(Exception):
+        pass
 
     def recon_fn(plan, refs):
-        if patch is not None:
-            patch(plan.hdr)
-        return rec(plan, refs)
+        if len(out) < k:
+            out[len(out)] = None
+            return recon.reconstruct_frame(plan, refs)
+        b = np.array([[x.mi_row, x.mi_col, x.bsize] for x in plan.blocks])
+        out["sub8x8"] = int(((b[:, 2] < BLOCK_8X8) & (
+            plan.mi.ref[b[:, 0], b[:, 1], 0] > 0)).sum())
+        out["hdr"] = plan.hdr
+        out["planes"] = last(plan, {f: None if rb is None else
+                                    _wider(rb, recon.RefBuffer)
+                                    for f, rb in refs.items()})
+        raise Done
 
-    with pytest.raises(NotImplementedError, match=item):
-        for _ in native_decode_stream_md5(str(FIXTURES / f"{name}.ivf"),
-                                          max_frames=n, recon_fn=recon_fn,
-                                          lag=0):
+    dec = decoder(recon_fn=recon_fn)
+    with IvfReader(str(FIXTURES / f"{name}.ivf")) as r:
+        try:
+            for data, _ in r:
+                dec.decode(data)
+        except Done:
             pass
-    assert rec.frames_on_host == 0 and rec.frames_on_device == n - 1
+    return out["hdr"], out["planes"], out["sub8x8"]
+
+
+@pytest.mark.parametrize("name", ["p1_01_176x144_444", "p1_02_176x144_422"])
+def test_scaled_sub8x8_matches_jax_oracle(name):
+    """The packer's scaled sub-8x8 branch at 4:4:4 and 4:2:2, which no
+    fixture reaches (the scaled fixtures' writer codes 64x64 blocks):
+    frame 1 of p1_01 (4:4:4) or p1_02 (4:2:2) holds sub-8x8 inter blocks;
+    with references 8 columns wider than the frame every inter block is
+    scaled.  The port's TorchRecon (its own parser) and the JAX package's
+    host oracle `reconstruct_frame` (its parser) give equal planes."""
+    from cuda_vp9_torch.ops.ref import recon as port_ref
+    from cuda_vp9_tpu.decoder.frame import NativeVp9Decoder as JaxDecoder
+    from cuda_vp9_tpu.ops.ref import recon as jax_ref
+    rec = TorchRecon("cpu")
+    hdr, got, sub = _frame_with_wider_refs(name, 1, NativeVp9Decoder,
+                                           port_ref, rec)
+    _, want, jsub = _frame_with_wider_refs(
+        name, 1, JaxDecoder, jax_ref,
+        lambda plan, refs: jax_ref.reconstruct_frame(plan, refs))
+    assert sub == jsub > 0
+    assert rec.frames_on_device == 1 and rec.frames_on_host == 0
+    assert [k[2] for k in rec._steps] == ["scaled"]
+    for p in range(3):
+        sx = hdr.subsampling_x if p else 0
+        sy = hdr.subsampling_y if p else 0
+        h, w = (hdr.height + sy) >> sy, (hdr.width + sx) >> sx
+        assert np.array_equal(np.asarray(got[p])[:h, :w],
+                              np.asarray(want[p])[:h, :w]), f"plane {p}"
 
 
 def test_pool_from_refs_matches_device_pool():

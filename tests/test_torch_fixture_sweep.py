@@ -1,6 +1,7 @@
 """The port's fixture sweep (cuda_vp9_torch/tools/fixture_sweep.py) on the
 CPU, at its smallest: which streams it takes (VP9 by the IVF fourcc, and
-large/hb01), a stream that passes, and a stream whose golden file was
+the six of `LARGE`: hb01, the 4:4:0 streams and the scaled 4:4:4 and
+4:2:2 streams of tests/fixtures/large), a stream that passes, and a stream whose golden file was
 changed, which must fail and name its first mismatching frame.  The sweep
 of every stream takes minutes here and runs on the card in chip_smoke.py,
 not in these tests."""
@@ -20,8 +21,9 @@ def test_streams_are_every_vp9_fixture_by_fourcc():
     names = FS.vp9_streams()
     vp8 = [p.stem for p in FIXTURES.glob("*.ivf") if p.stem.startswith("v8")]
     assert vp8 and not set(vp8) & set(names)
-    assert names[-1] == "large/hb01_1920x1080_10b"
-    assert len(names) == len(list(FIXTURES.glob("*.ivf"))) - len(vp8) + 1
+    assert names[-6:] == list(FS.LARGE)
+    assert names[-1] == "large/sc03_176x144_422_scaled"
+    assert len(names) == len(list(FIXTURES.glob("*.ivf"))) - len(vp8) + 6
     assert FS._pick(names, ["mv01", "kf01_64x64"]) == [
         "kf01_64x64", "mv01_176x144_extmv"]
 

@@ -19,11 +19,13 @@
     host call each, with the phases and the scaled class counted, a
     frame with neither chunks nor mask bits makes none, and
     `plain_calls` stays; with a mask, a frame buffer off a 16-byte
-    boundary or rows of a width not a multiple of 4 are refused;
+    boundary or rows of a width not a multiple of 4 are refused; the
+    table of every case of `kernel_cases.MC_CASES` (every chroma format's
+    mask) is built, with the phases it should list;
   * on the card (marked `cuda`; skips without a device): the one launch
     against the twin, bit for bit, on every case of
-    `kernel_cases.MC_CASES` (bit depths 8, 10 and 12; 4:2:0, 4:4:4 and
-    4:2:2; the packer's chunk lengths and short ones; 1, 3 and 4
+    `kernel_cases.MC_CASES` (bit depths 8, 10 and 12; 4:2:0, 4:4:4,
+    4:2:2 and 4:4:0; the packer's chunk lengths and short ones; 1, 3 and 4
     streams), with its mask, without it, and the mask alone: one host
     call and one launch a call, with the phases its table lists.
 
@@ -227,6 +229,32 @@ def test_table_addresses_equal_the_segment_views(name):
             assert classes
     assert n_inter >= 2
     assert (n_scaled > 0) == (name == "cp01_352x288_compound")
+
+
+@pytest.mark.parametrize("i", range(len(KC.MC_CASES)))
+def test_table_takes_every_case(i):
+    """The host side of the kernel's call (mc_table) takes every case of
+    kernel_cases.MC_CASES, the mask of each chroma format (4:2:0, 4:4:4,
+    4:2:2 and 4:4:0) included, with and without the mask: as many phases
+    as mc_phases lists, and the scaled class where the case has one."""
+    c = case(i, 700 + i)
+    if len(c.flats) == 1:
+        pool, active = pool_of(c, 0), None
+        fl = torch.from_numpy(c.flats[:1])
+        classes, mask = KC.mc_args(c, fl, 0)
+    else:
+        pool, active = c.pool, torch.from_numpy(c.active)
+        fl = torch.from_numpy(c.flats)
+        classes, mask = KC.mc_args(c, fl)
+    assert mask is not None and (mask.ssx, mask.ssy) == c.ss
+    F, R = frame_buffer(c.F), frame_buffer(c.R)
+    for m in (mask, None):
+        _, n_phases, scaled = K.mc_table(
+            F, R, torch.from_numpy(pool), torch.from_numpy(KERNELS), fl,
+            classes, m, active, c.ha, c.wa)
+        # the table lists the MC phases; the mask phase follows them
+        assert (n_phases + (m is not None), scaled) == KC.mc_phases(
+            classes, m)
 
 
 class _OnCuda:

@@ -6,7 +6,7 @@ mask add (`cuda_vp9_tpu/runtime/fused.py:620-633`): F = clip(F + R, 0,
 to a sign-extended int16 word, a chroma cell (8 >> ss_y) x (8 >> ss_x)
 pixels.
 
-At 4:2:0, 4:4:4 and 4:2:2, for 1 and 3 streams (the batched step's
+At 4:2:0, 4:4:4, 4:2:2 and 4:4:0, for 1 and 3 streams (the batched step's
 stream axis: stream k's planes 3k .. 3k + 2 and its own mask), at bit
 depths 8, 10 and 12, with mask words over the whole int16 range (bit 15
 set), bits past the last mi column, and residuals that carry F + R past 0
@@ -20,7 +20,7 @@ from cuda_vp9_torch.ops.cuda import mc as K
 
 torch.set_num_threads(1)
 
-SS = {"420": (1, 1), "444": (0, 0), "422": (1, 0)}
+SS = {"420": (1, 1), "444": (0, 0), "422": (1, 0), "440": (0, 1)}
 
 
 def numpy_mask_add(F, R, mp, mi_rows, mi_cols, bd, ssx, ssy):
