@@ -103,7 +103,20 @@ Phases, each of which exits non-zero on failure:
          cuda_vp9_torch/tools/fixture_sweep.py, each stream on its own
          counts: every frame MD5-exact to the end of its .md5, none on
          the host but for a reference outside the spec's scale range, no
-         plain version; a line per stream and the phase's total time;
+         plain version; then the 9 VP8 fixtures (v8*, fourcc VP80),
+         whole, through vp8_dx(), which decodes on the host by design:
+         every frame MD5-exact, a line per stream marked "decoded on the
+         host (VP8)"; a line per stream and the phase's total time;
+       - `python -m cuda_vp9_torch.tools.vpxdec --device cuda -o` (its
+         main()), each run on its own counts: nc03 to a raw .yuv, p2_01
+         (10-bit) and p1_01 (4:4:4) to .y4m, and v8in01 to .y4m through
+         the fourcc probe (VP8, on the host).  Each file is split into
+         frames by its header and the stream's geometry, and every frame's
+         MD5 must equal the golden file; the .y4m header must carry the
+         stream's tag (C420, C420p10, C444); the VP9 runs must have every
+         frame on the device, the page expansion once a frame, the
+         residual, intra and MC kernels launched and no plain version;
+         the VP8 run must launch no kernel.
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
@@ -1891,16 +1904,101 @@ def fixture_sweep_phase():
     through cuda_vp9_torch/tools/fixture_sweep.py on the card: each
     stream's frames MD5-exact to the end of its .md5, none on the host
     (but for a reference outside the spec's scale range, named), no plain
-    version, each stream's kernel counts set to 0 before it.  Exits on a
+    version, each stream's kernel counts set to 0 before it; then every
+    VP8 fixture, whole, on the host (vp8_dx()), MD5-exact.  Exits on a
     failure."""
     from cuda_vp9_torch.tools import fixture_sweep as FS
     done = {name for name, _, _ in STREAMS}
-    names = [n for n in FS.vp9_streams() if n not in done]
+    names = [n for n in FS.streams() if n not in done]
     recs = FS.sweep(names, "cuda")
     if not recs or not all(r["ok"] for r in recs):
         raise SystemExit("fixture sweep: "
                          + ", ".join(r["name"] for r in recs if not r["ok"])
                          + " failed")
+
+
+# phase 4e: (stream, output suffix, Y4M tag, ss_x, ss_y, bit depth)
+VPXDEC_RUNS = (("nc03_640x360_occl", ".yuv", None, 1, 1, 8),
+               ("p2_01_176x144_10b", ".y4m", "C420p10", 1, 1, 10),
+               ("p1_01_176x144_444", ".y4m", "C444", 0, 0, 8),
+               ("v8in01_176x144", ".y4m", "C420", 1, 1, 8))
+
+
+def split_frames(data: bytes, y4m: bool, w, h, ss_x, ss_y, bd):
+    """(Y4M header or None, the frames' bytes) of a file that vpxdec -o
+    wrote for a stream of this geometry."""
+    size = (w * h + 2 * ((w + ss_x) >> ss_x) * ((h + ss_y) >> ss_y)) * (
+        1 if bd == 8 else 2)
+    header, pos, frames = None, 0, []
+    if y4m:
+        pos = data.index(b"\n") + 1
+        header = data[:pos].decode()
+    while pos < len(data):
+        if y4m:
+            if data[pos:pos + 6] != b"FRAME\n":
+                raise SystemExit(f"vpxdec -o: no FRAME marker at byte {pos}")
+            pos += 6
+        frames.append(data[pos:pos + size])
+        pos += size
+    if frames and len(frames[-1]) != size:
+        raise SystemExit("vpxdec -o: the file ends inside a frame")
+    return header, frames
+
+
+def vpxdec_phase(counted, PG, IN, RS, MC):
+    """Phase 4e: vpxdec -o on the card (VPXDEC_RUNS), each run on its own
+    counts; each file's frames held against the golden MD5s.  Exits on a
+    failure."""
+    import hashlib
+    import io
+    import re
+    from contextlib import redirect_stderr
+
+    from cuda_vp9_torch.containers import IvfReader
+    from cuda_vp9_torch.tools import vpxdec
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, suffix, tag, ss_x, ss_y, bd in VPXDEC_RUNS:
+        ivf = FIXTURES / f"{name}.ivf"
+        path = out_dir / f"{name}{suffix}"
+        with IvfReader(str(ivf)) as r:
+            w, h, vp8 = r.width, r.height, r.fourcc == b"VP80"
+        for k in counted:
+            k.reset_counts()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stderr(err):
+            rc = vpxdec.main([str(ivf), "--device", "cuda", "-o", str(path),
+                              "--summary"])
+        dt = time.perf_counter() - t0
+        summary = err.getvalue().strip()
+        header, frames = split_frames(path.read_bytes(), suffix == ".y4m",
+                                      w, h, ss_x, ss_y, bd)
+        want = golden_md5(name)
+        bad = [i for i, f in enumerate(frames)
+               if i >= len(want) or hashlib.md5(f).hexdigest() != want[i]]
+        launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                    for k in counted}
+        plain = sum(k.plain_calls for k in counted)
+        print(f"vpxdec -o {path.name}: rc {rc}, {len(frames)} frames of "
+              f"{len(want)}, MD5 mismatches {bad}, header "
+              f"{header.strip() if header else None}, summary "
+              f"'{summary}', launches {launches}, plain calls {plain}, "
+              f"{dt:.2f} s")
+        ok = (rc == 0 and not bad and len(frames) == len(want)
+              and (header is None) == (tag is None)
+              and (tag is None or header.rstrip("\n").endswith(f" {tag}")))
+        if vp8:
+            ok = ok and "VP8, decoded on the host" in summary \
+                and not any(launches.values()) and not plain
+        else:
+            m = re.search(r"frames on device (\d+), on host (\d+)", summary)
+            ok = ok and m is not None and int(m[1]) == len(want) \
+                and int(m[2]) == 0 and PG.launches == len(want) \
+                and IN.launches and RS.launches and MC.launches \
+                and not plain
+        if not ok:
+            raise SystemExit(f"vpxdec -o {path.name} failed")
 
 
 def main() -> int:
@@ -2174,8 +2272,16 @@ def main() -> int:
     # 4c. the multi-stream decoders, each counted on its own
     lfs_launches = multi_stream_paths(LF, counted)
 
-    # 4d. every other VP9 fixture, whole, each stream counted on its own
+    # 4d. every other VP9 fixture, whole, each stream counted on its own,
+    # and the VP8 fixtures on the host
+    t0 = time.perf_counter()
     fixture_sweep_phase()
+    print(f"phase 4d: {time.perf_counter() - t0:.2f} s")
+
+    # 4e. vpxdec -o, each run counted on its own
+    t0 = time.perf_counter()
+    vpxdec_phase(counted, PG, IN, RS, MC)
+    print(f"phase 4e: {time.perf_counter() - t0:.2f} s")
 
     # 5. warm decode rate and kernel timing
     for k in counted:

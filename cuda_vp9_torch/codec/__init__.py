@@ -1,5 +1,6 @@
 """Public codec API: vpx_codec_* parity (vpx/vpx_decoder.h, vpx_codec.h,
-vpx_image.h semantics), VP9 only, decoding on a torch device.
+vpx_image.h semantics) for VP9, decoded on a torch device, and VP8,
+decoded on the host.
 
 Call-shape parity with the reference (SURVEY.md §2 S14/S15):
 
@@ -22,7 +23,14 @@ controls            -> vpx/vp8dx.h control IDs (subset)
 reconstructs every frame on `device` (only a frame whose reference lies
 outside the spec's scale range, or one that overflows its last capacity
 tier, goes to the host oracle, as in the JAX package).  It never swaps the device backend for another one: a failure to build it
-fails `vpx_codec_dec_init`.  VP8 is not part of this package.
+fails `vpx_codec_dec_init`.
+
+`vp8_dx()` is the VP8 iface: `vp8.Vp8StreamDecoder`, the NumPy decoder
+of RFC 6386, on the host by design (the reference decodes VP8 on the
+CPU as well; its GPU passes are VP9's only), with error concealment
+(VPX_CODEC_USE_ERROR_CONCEALMENT) and the display-side postproc
+(VPX_CODEC_USE_POSTPROC, VP8_SET_POSTPROC), which the VP9 iface refuses
+as the reference's does.  It takes no device and puts no work on one.
 """
 
 from __future__ import annotations
@@ -82,9 +90,6 @@ VP8_LAST_FRAME = 1
 VP8_GOLD_FRAME = 2
 VP8_ALTR_FRAME = 4
 
-# vpx/vpx_decoder.h init flags
-VPX_CODEC_USE_POSTPROC = 0x10000
-
 # vpx/vp8.h vp8_postproc_level (VP8 display-side filters)
 VP8D_NOFILTERING = 0
 VP8D_DEBLOCK = 1 << 0
@@ -116,6 +121,9 @@ class RefFrame:
 # init-time flags (vpx/vpx_decoder.h:73-80)
 VPX_CODEC_USE_POSTPROC = 0x10000
 VPX_CODEC_USE_ERROR_CONCEALMENT = 0x20000
+# the capabilities they need (vpx/vpx_decoder.h VPX_CODEC_CAP_*)
+VPX_CODEC_CAP_POSTPROC = 0x40000
+VPX_CODEC_CAP_ERROR_CONCEALMENT = 0x80000
 
 
 class CodecError(Exception):
@@ -173,12 +181,17 @@ class Vp9TorchIface:
     frame step on a torch device."""
 
     name = "cuda-vp9-torch VP9 Decoder"
+    # no postproc and no error concealment, as the reference's VP9
+    # (vpx_config.h CONFIG_VP9_POSTPROC=0; vp9_dx_iface.c caps)
+    caps = 0
 
     def __init__(self, device):
         self.device = torch.device(device)
 
-    def make_decoder(self, cfg: DecCfg):
-        """(decoder, recon) with the frame step on the iface's device."""
+    def make_decoder(self, cfg: DecCfg, use_postproc: bool = False,
+                     ec: bool = False):
+        """(decoder, recon) with the frame step on the iface's device;
+        `vpx_codec_dec_init` asks for neither option (caps)."""
         from ..decoder.frame import NativeVp9Decoder
         from ..runtime.pipeline import TorchRecon
         recon = TorchRecon(self.device)
@@ -190,6 +203,34 @@ def vp9_dx_torch(device) -> Vp9TorchIface:
     """The VP9 decoder iface with reconstruction on `device`
     (vpx_codec_vp9_dx() parity)."""
     return Vp9TorchIface(device)
+
+
+class Vp8HostIface:
+    """vpx_codec_vp8_dx_algo parity (vp8/vp8_dx_iface.c:731): key and
+    inter frames, bit-exact vs the normative vp8 decoder, decoded on the
+    host."""
+
+    name = "cuda-vp9-torch VP8 Decoder (host)"
+    # the reference is built --enable-error-concealment
+    # (vp8/decoder/onyxd_if.c:97) and with VP8 postproc
+    caps = VPX_CODEC_CAP_POSTPROC | VPX_CODEC_CAP_ERROR_CONCEALMENT
+
+    def make_decoder(self, cfg: DecCfg, use_postproc: bool = False,
+                     ec: bool = False):
+        """(decoder, None): VP8 has no device recon.  `use_postproc` and
+        `ec` are the VPX_CODEC_USE_POSTPROC and
+        VPX_CODEC_USE_ERROR_CONCEALMENT init flags."""
+        from ..vp8 import Vp8StreamDecoder
+        return Vp8StreamDecoder(ec_enabled=ec,
+                                use_postproc=use_postproc), None
+
+
+_VP8_IFACE = Vp8HostIface()
+
+
+def vp8_dx() -> Vp8HostIface:
+    """vpx_codec_vp8_dx() parity: the VP8 iface, on the host."""
+    return _VP8_IFACE
 
 
 class CodecCtx:
@@ -229,20 +270,19 @@ def vpx_codec_dec_init(ctx: CodecCtx, iface, cfg: Optional[DecCfg] = None,
     ctx.iface = iface
     ctx.name = iface.name
     use_postproc = bool(flags & VPX_CODEC_USE_POSTPROC)
-    if use_postproc:
-        # vp9 is built without postproc, like the reference
-        # (vpx_config.h CONFIG_VP9_POSTPROC=0)
+    ec = bool(flags & VPX_CODEC_USE_ERROR_CONCEALMENT)
+    # vpx_codec_dec_init_ver: a flag whose capability the iface lacks
+    if use_postproc and not iface.caps & VPX_CODEC_CAP_POSTPROC:
         ctx.err = VPX_CODEC_INCAPABLE
         ctx.err_detail = "postproc not supported for this codec"
         return ctx.err
+    if ec and not iface.caps & VPX_CODEC_CAP_ERROR_CONCEALMENT:
+        ctx.err = VPX_CODEC_INCAPABLE
+        ctx.err_detail = "error concealment not supported"
+        return ctx.err
     try:
-        if flags & VPX_CODEC_USE_ERROR_CONCEALMENT:
-            # the reference's vp9 iface has no EC either
-            # (vp9_dx_iface.c caps lack VPX_CODEC_CAP_ERROR_CONCEALMENT)
-            ctx.err = VPX_CODEC_INCAPABLE
-            ctx.err_detail = "error concealment not supported"
-            return ctx.err
-        ctx._dec, ctx._recon = iface.make_decoder(cfg)
+        ctx._dec, ctx._recon = iface.make_decoder(
+            cfg, use_postproc=use_postproc, ec=ec)
     except Exception as e:  # pragma: no cover
         ctx.err = VPX_CODEC_MEM_ERROR
         ctx.err_detail = str(e)
@@ -496,13 +536,38 @@ def _ctrl_set_reference(ctx, rf) -> int:
                 if s is rb:
                     recon._slot_dirty[i] = True
         return VPX_CODEC_OK
+    d8 = getattr(dec, "_dec", None)
+    if d8 is not None and hasattr(d8, "refs"):         # VP8
+        from ..vp8.decoder import (LAST, GOLDEN, ALTREF, BY, BC,
+                                   Vp8Decoder)
+        key = {VP8_LAST_FRAME: LAST, VP8_GOLD_FRAME: GOLDEN,
+               VP8_ALTR_FRAME: ALTREF}.get(rf.frame_type)
+        if key is None:
+            return VPX_CODEC_ERROR
+        buf = d8.refs.get(key)
+        if buf is None:
+            return VPX_CODEC_ERROR
+        w, h = d8.hdr.width, d8.hdr.height
+        cw, chh = (w + 1) >> 1, (h + 1) >> 1
+        y, u, v = (np.asarray(p) for p in rf.planes)
+        if y.shape != (h, w) or u.shape != (chh, cw) \
+                or v.shape != (chh, cw):
+            return VPX_CODEC_ERROR
+        Y, U, V = buf
+        Y[BY:BY + h, BY:BY + w] = y
+        U[BC:BC + chh, BC:BC + cw] = u
+        V[BC:BC + chh, BC:BC + cw] = v
+        # re-extend borders (MC reads the pre-extended apron)
+        Vp8Decoder._extend_borders(Y, U, V, d8.mb_cols * 16,
+                                   d8.mb_rows * 16)
+        return VPX_CODEC_OK
     return VPX_CODEC_INCAPABLE
 
 
 def _ctrl_copy_reference(ctx, rf) -> int:
     """VP8_COPY_REFERENCE (vp9_copy_reference_dec:258-285): copy the
     current frame's LAST reference out (VP9 supports LAST only, like
-    the reference)."""
+    the reference; VP8 copies any of the three)."""
     import numpy as np
     if rf is None:
         return VPX_CODEC_INVALID_PARAM
@@ -517,6 +582,23 @@ def _ctrl_copy_reference(ctx, rf) -> int:
         rf.planes = [planes[0][:rb.height, :rb.width].copy(),
                      planes[1][:chh, :cw].copy(),
                      planes[2][:chh, :cw].copy()]
+        return VPX_CODEC_OK
+    d8 = getattr(dec, "_dec", None)
+    if d8 is not None and hasattr(d8, "refs"):         # VP8
+        from ..vp8.decoder import LAST, GOLDEN, ALTREF, BY, BC
+        key = {VP8_LAST_FRAME: LAST, VP8_GOLD_FRAME: GOLDEN,
+               VP8_ALTR_FRAME: ALTREF}.get(rf.frame_type)
+        if key is None:
+            return VPX_CODEC_ERROR
+        buf = d8.refs.get(key)
+        if buf is None:
+            return VPX_CODEC_ERROR
+        w, h = d8.hdr.width, d8.hdr.height
+        cw, chh = (w + 1) >> 1, (h + 1) >> 1
+        Y, U, V = buf
+        rf.planes = [Y[BY:BY + h, BY:BY + w].copy(),
+                     U[BC:BC + chh, BC:BC + cw].copy(),
+                     V[BC:BC + chh, BC:BC + cw].copy()]
         return VPX_CODEC_OK
     return VPX_CODEC_INCAPABLE
 
@@ -545,9 +627,17 @@ def vpx_codec_control(ctx: CodecCtx, ctrl_id: int, *args):
     if ctrl_id == VP9_GET_REFERENCE:
         return _ctrl_get_reference(ctx, args[0] if args else None)
     if ctrl_id == VP8_SET_POSTPROC:
-        # VP9 is built without postproc in the reference
+        # VP8 only; VP9 is built without postproc in the reference
         # (vpx_config.h CONFIG_VP9_POSTPROC=0)
-        return VPX_CODEC_INCAPABLE
+        dec = ctx._dec
+        if not hasattr(dec, "postproc_cfg"):
+            return VPX_CODEC_INCAPABLE
+        cfg = args[0] if args else None
+        if cfg is None:
+            return VPX_CODEC_INVALID_PARAM
+        dec.postproc_cfg = (cfg.post_proc_flag, cfg.deblocking_level,
+                            cfg.noise_level)
+        return VPX_CODEC_OK
     if ctrl_id == VP8D_GET_FRAME_CORRUPTED:
         return ctx._corrupted
     if ctrl_id == VPXD_GET_LAST_QUANTIZER:

@@ -23,6 +23,16 @@ def is_ivf(buf: bytes) -> bool:
     return len(buf) >= 4 and buf[:4] == _DKIF
 
 
+def is_vp8(path) -> bool:
+    """Whether `path` is an IVF file whose fourcc is VP80 (vpxdec's codec
+    probe); anything else, WebM included, is VP9."""
+    try:
+        with IvfReader(str(path)) as r:
+            return r.fourcc == FOURCC_VP8
+    except ValueError:          # not IVF
+        return False
+
+
 @dataclass
 class IvfHeader:
     fourcc: bytes

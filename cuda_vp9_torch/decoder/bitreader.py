@@ -1,12 +1,86 @@
-"""VP9 raw bit reader and superframe index.
+"""VP9 raw bit reader and superframe index, and VP8's bool decoder.
 
 Capability parity with the reference's `vpx_dsp/bitreader_buffer.{h,c}`
-(MSB-first raw bit reader used for the uncompressed frame header) and
-`vp9_parse_superframe_index`.  The tile bitstreams' bool decoder lives in
-the C++ parser (native/).
+(MSB-first raw bit reader used for the uncompressed frame header),
+`vp9_parse_superframe_index`, and VP8's bool decoder
+(`vp8/decoder/dboolhuff.{h,c}`, implemented from the normative
+arithmetic-decoding process of RFC 6386 §7: maintain an
+arbitrary-precision value window with `bits` live low-order bits;
+`split = 1 + ((range - 1) * prob >> 8)` and renormalize `range` into
+[128, 255]).  VP9's tile bitstreams are bool-decoded in the C++ parser
+(native/); `BoolDecoder` here serves the VP8 decoder (vp8/).
 """
 
 from __future__ import annotations
+
+
+class BoolDecoder:
+    """VP8's boolean (range) decoder over a byte buffer (RFC 6386 §7.1:
+    no marker bit, unlike VP9's `vpx_reader_init`)."""
+
+    __slots__ = ("data", "pos", "end", "value", "range", "bits", "_virtual")
+
+    def __init__(self, data, start: int = 0, size: int | None = None):
+        self.data = data
+        self.pos = start
+        self.end = start + (len(data) - start if size is None else size)
+        self.value = 0
+        self.range = 255
+        self.bits = -8  # forces initial fill of at least one byte
+        self._virtual = 0  # zero bytes synthesized past the end (overrun)
+        self._fill()
+
+    def _fill(self):
+        # Load up to 7 bytes at a time into the low bits of the window.
+        data, pos, end = self.data, self.pos, self.end
+        v = self.value
+        bits = self.bits
+        while bits < 48:
+            if pos < end:
+                v = (v << 8) | data[pos]
+                pos += 1
+            else:
+                v <<= 8
+                self._virtual += 1
+            bits += 8
+        self.value = v
+        self.bits = bits
+        self.pos = pos
+
+    def has_error(self) -> bool:
+        """True if the decoder consumed synthesized bytes beyond real input."""
+        return self._virtual * 8 > self.bits + 8
+
+    def read(self, prob: int) -> int:
+        """Decode one bool with P(0) = prob/256."""
+        bits = self.bits
+        if bits < 8:
+            self._fill()
+            bits = self.bits
+        r = self.range
+        split = 1 + (((r - 1) * int(prob)) >> 8)
+        bigsplit = split << bits
+        if self.value >= bigsplit:
+            bit = 1
+            r -= split
+            self.value -= bigsplit
+        else:
+            bit = 0
+            r = split
+        # renormalize: range must land in [128, 255]
+        shift = 8 - r.bit_length()
+        self.range = r << shift
+        self.bits = bits - shift
+        return bit
+
+    def read_bit(self) -> int:
+        return self.read(128)
+
+    def read_literal(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.read(128)
+        return v
 
 
 class BitReader:

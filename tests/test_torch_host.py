@@ -34,6 +34,10 @@ def _absolute_imports(path: Path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "cuda_vp9_torch").rglob("*.py"))
     assert len(files) > 30, "the port's modules were not found"
+    vp8 = {f.name for f in files if f.parent.name == "vp8"}
+    assert vp8 == {"__init__.py", "concealment.py", "decoder.py",
+                   "postproc.py", "pptables.py", "recon.py",
+                   "tables_gen.py"}, vp8
     bad = [f"{f.relative_to(ROOT)}: {m}"
            for f in files + [ROOT / "chip_smoke.py"]
            for m in _absolute_imports(f) if m in FORBIDDEN]
