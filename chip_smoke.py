@@ -116,7 +116,25 @@ Phases, each of which exits non-zero on failure:
          stream's tag (C420, C420p10, C444); the VP9 runs must have every
          frame on the device, the page expansion once a frame, the
          residual, intra and MC kernels launched and no plain version;
-         the VP8 run must launch no kernel.
+         the VP8 run must launch no kernel;
+       - the multi-card path (cuda_vp9_torch/parallel) and TorchRecon's
+         modes: dryrun_multichip over every card (lg01, in01 and kf02
+         MD5-exact through one worker process per card);
+         ShardedBatchedDecoder on 16 x nc03 over [cuda:0, cuda:0] (two
+         worker processes on the one card, 8 streams each): every MD5
+         equal to the golden file, every frame on the device and in the
+         batch, and in each worker (its own counts, from a fresh
+         process) the stream-axis loop filter once a round with a level,
+         intra and residual at most once a round, MC once a host call,
+         the expansion once a round and no plain version; then a warm
+         pass in the same workers, timed, with each worker's seconds per
+         request, beside 16 x nc03 in this process (aggregate fps, records
+         and not claims); TorchRecon("cuda", validate_against_oracle=True)
+         on nc03 and cp01 whole (every frame held against the host
+         oracle); TorchRecon("cuda", defer_output=True) on nc03 and hd01:
+         no frame fetched, none on the host, and sync() equal to the ring
+         checksum of the same decode with read-back, whose warm rate is
+         printed beside the deferred one.
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
@@ -2001,6 +2019,182 @@ def vpxdec_phase(counted, PG, IN, RS, MC):
             raise SystemExit(f"vpxdec -o {path.name} failed")
 
 
+# phase 4f: the streams TorchRecon checks against the host oracle, the
+# streams it decodes with defer_output, and the mesh of the sharded run
+# (two worker processes on the one card)
+VALIDATED = (("nc03_640x360_occl", 12), ("cp01_352x288_compound", 8))
+DEFERRED = (("nc03_640x360_occl", 12), ("hd01_1920x1080_t4", 4))
+SHARD_MESH = 2
+
+
+def recon_run(name, n, **modes):
+    """The first n packets of a fixture through NativeVp9Decoder and
+    TorchRecon("cuda", **modes): (the frames' MD5s, or with defer_output
+    the ring checksum from sync(); the recon; seconds; the frames).  The
+    time ends after the MD5s, which read every frame back, or after
+    sync()."""
+    from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
+    from cuda_vp9_torch.runtime.pipeline import TorchRecon
+    from cuda_vp9_torch.utils.md5 import frame_md5
+    pk = packets(name)[:n]
+    t0 = time.perf_counter()
+    recon = TorchRecon("cuda", **modes)
+    dec = NativeVp9Decoder(recon_fn=recon)
+    frames = []
+    for p in pk:
+        dec.decode(p)
+        frames.extend(dec.frames())
+    out = recon.sync() if modes.get("defer_output") else [
+        frame_md5(f.visible_planes()) for f in frames]
+    return out, recon, time.perf_counter() - t0, frames
+
+
+def sharded_pass(dec, names):
+    """One pass of the streams (every packet, one round each) through a
+    ShardedBatchedDecoder, then drain: (per-stream MD5s, seconds, seconds
+    of the drain alone, the bytes of the planes that came back)."""
+    from cuda_vp9_torch.utils.md5 import frame_md5
+    pk = [packets(n) for n in names]
+    t0 = time.perf_counter()
+    for i in range(max(map(len, pk))):
+        dec.decode_round([p[i] if i < len(p) else None for p in pk])
+    t1 = time.perf_counter()
+    frames = list(dec.drain())
+    t2 = time.perf_counter()
+    md5s = [[] for _ in names]
+    for s, fr in frames:
+        md5s[s].append(frame_md5(fr.visible_planes()))
+    nbytes = sum(p.nbytes for _, fr in frames for p in fr.planes)
+    return md5s, time.perf_counter() - t0, t2 - t1, nbytes
+
+
+def worker_checks(label, st, names):
+    """Each worker of a sharded run: every frame of its block on the
+    device and in the batch, the stream-axis loop filter once a round
+    with a level, intra and residual at most once a round, MC once a
+    host call, the expansion once a round, no plain call.  Exits on a
+    failure."""
+    for w in st["workers"]:
+        k = w["kernels"]
+        blk = [names[s] for s in w["streams"]]
+        want_lf = rounds_with_level(blk)
+        frames = [st["streams"][s] for s in w["streams"]]
+        print(f"{label} worker pid {w['pid']} on {w['device']}: streams "
+              f"{w['streams'].start}-{w['streams'].stop - 1}, {w['rounds']} "
+              f"rounds, frames on device {sum(f['device'] for f in frames)},"
+              f" on host {sum(f['host'] for f in frames)}, unbatched "
+              f"{sum(f['unbatched'] for f in frames)}; lf_frames launches "
+              f"{k['loopfilter']['launches']} (rounds with a level: "
+              f"{want_lf}), intra launches {k['intra']['launches']} in "
+              f"{k['intra']['host_calls']} host calls "
+              f"({k['intra']['chunks']} chunks), residual launches "
+              f"{k['residual']['launches']}, mc launches "
+              f"{k['mc']['launches']} ({k['mc']['phases']} phases) in "
+              f"{k['mc']['host_calls']} host calls, expand_pages launches "
+              f"{k['pages']['launches']}, plain calls "
+              f"{sum(c['plain_calls'] for c in k.values())}")
+        rounds = w["rounds"]
+        if any(f["host"] or f["unbatched"] for f in frames) \
+                or any(c["plain_calls"] for c in k.values()) \
+                or k["loopfilter"]["launches"] != want_lf \
+                or not 0 < k["intra"]["launches"] == k["intra"]["host_calls"] \
+                <= rounds \
+                or not 0 < k["residual"]["launches"] <= rounds \
+                or not 0 < k["mc"]["launches"] == k["mc"]["host_calls"] \
+                <= rounds \
+                or k["pages"]["launches"] != rounds:
+            raise SystemExit(f"{label}: worker {w['pid']} failed its kernel "
+                             "checks")
+
+
+def multi_card_phase(card, counted, PG):
+    """Phase 4f: the multi-card path (cuda_vp9_torch/parallel) and
+    TorchRecon's validate_against_oracle, defer_output and sync.  Exits on
+    a failure."""
+    from cuda_vp9_torch.parallel import ShardedBatchedDecoder
+    from cuda_vp9_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    dryrun_multichip(torch.cuda.device_count())
+    print(f"phase 4f dryrun_multichip({torch.cuda.device_count()}): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # 16 x nc03 over two processes on the one card: a cold pass (the
+    # workers' start, their CUDA contexts and first rounds), then a warm
+    # one in the same workers
+    mesh = [torch.device("cuda", 0)] * SHARD_MESH
+    t0 = time.perf_counter()
+    with ShardedBatchedDecoder(len(NC03_BATCH), mesh) as dec:
+        t_up = time.perf_counter() - t0
+        md5s, cold, _, _ = sharded_pass(dec, NC03_BATCH)
+        st = dec.stats()
+        n_frames = sum(len(m) for m in md5s)
+        bad = [s for s, m in enumerate(md5s)
+               if m != golden_md5(NC03_BATCH[s])]
+        print(f"sharded 16 x nc03 over {[str(d) for d in mesh]}: "
+              f"{n_frames} frames, MD5 mismatches in streams {bad}, on "
+              f"device {sum(f['device'] for f in st['streams'])}, workers "
+              f"{[w['pid'] for w in st['workers']]}, start {t_up:.2f} s, "
+              f"cold pass {cold:.2f} s")
+        if bad or len({w["pid"] for w in st["workers"]}) != SHARD_MESH:
+            raise SystemExit("sharded 16 x nc03: decode check failed")
+        worker_checks("sharded 16 x nc03", st, NC03_BATCH)
+        md5s, warm, drain, nbytes = sharded_pass(dec, NC03_BATCH)
+        if any(m != golden_md5(NC03_BATCH[s]) for s, m in enumerate(md5s)):
+            raise SystemExit("sharded 16 x nc03 warm pass: MD5 mismatch")
+        for w0, w1 in zip(st["workers"], dec.stats()["workers"]):
+            # the warm pass's share of each worker's seconds per request
+            spent = {k: round(v - w0["seconds"].get(k, 0.0), 4)
+                     for k, v in w1["seconds"].items() if k != "stats"}
+            print(f"sharded 16 x nc03 warm pass, worker pid {w1['pid']}: "
+                  f"seconds {spent} (drain includes drain.flush; send: "
+                  f"pickling the answers into the pipe) [{card}]")
+    md5s, bd, one = batched(NC03_BATCH)
+    if any(m != golden_md5(NC03_BATCH[0]) for m in md5s):
+        raise SystemExit("16 x nc03 in one process: MD5 mismatch")
+    print(f"16 x nc03 warm, aggregate: one process {n_frames / one:.2f} "
+          f"fps ({one:.3f} s), two processes {n_frames / warm:.2f} fps "
+          f"({warm:.3f} "
+          f"s, of which the drain {drain:.3f} s: {nbytes} bytes of planes "
+          f"pickled back) [{card}]")
+
+    # TorchRecon against the host oracle, whole streams
+    for name, n in VALIDATED:
+        for k in counted:
+            k.reset_counts()
+        md5s, recon, dt, _ = recon_run(name, n, validate_against_oracle=True)
+        bad = [i for i, (a, b) in enumerate(zip(md5s, golden_md5(name)))
+               if a != b]
+        plain = sum(k.plain_calls for k in counted)
+        print(f"{name} validate_against_oracle: {len(md5s)} frames held "
+              f"against the host oracle, MD5 mismatches {bad}, on device "
+              f"{recon.frames_on_device}, on host {recon.frames_on_host}, "
+              f"expand_pages launches {PG.launches}, plain calls {plain}, "
+              f"{dt:.2f} s")
+        if bad or len(md5s) != n or recon.frames_on_device != n \
+                or recon.frames_on_host or plain or PG.launches != n:
+            raise SystemExit(f"{name}: validate_against_oracle run failed")
+
+    # defer_output: nothing read back; sync() is the barrier, and the ring
+    # ends as the read-back run's does
+    for name, n in DEFERRED:
+        for k in counted:
+            k.reset_counts()
+        md5s, shown, with_rb, _ = recon_run(name, n)
+        check, recon, without, frames = recon_run(name, n,
+                                                  defer_output=True)
+        fetched = sum(f.planes._planes is not None for f in frames)
+        want = shown.sync()
+        print(f"{name} defer_output: {len(frames)} frames, on device "
+              f"{recon.frames_on_device}, on host {recon.frames_on_host}, "
+              f"fetched {fetched}, sync() {check} (the read-back run's ring "
+              f"{want}); warm {n / with_rb:.2f} fps with read-back, "
+              f"{n / without:.2f} fps without [{card}]")
+        if md5s != golden_md5(name)[:n] or recon.frames_on_device != n \
+                or recon.frames_on_host or fetched or check != want \
+                or any(k.plain_calls for k in counted):
+            raise SystemExit(f"{name}: defer_output run failed")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2282,6 +2476,11 @@ def main() -> int:
     t0 = time.perf_counter()
     vpxdec_phase(counted, PG, IN, RS, MC)
     print(f"phase 4e: {time.perf_counter() - t0:.2f} s")
+
+    # 4f. the multi-card path, and TorchRecon's modes
+    t0 = time.perf_counter()
+    multi_card_phase(card, counted, PG)
+    print(f"phase 4f: {time.perf_counter() - t0:.2f} s")
 
     # 5. warm decode rate and kernel timing
     for k in counted:

@@ -21,6 +21,9 @@ references):
   runtime/fused.py        one frame step: residual, MC, mask add, intra,
                           loop filter, pool refresh, output ring
   runtime/pipeline.py     TorchRecon, the NativeVp9Decoder recon backend
+  runtime/multistream.py  many streams on one device (batched, round-robin)
+  parallel/               many streams over several devices: one worker
+                          process per device (ShardedBatchedDecoder)
   convert.py              decoder state (pool, ring) into the port
   codec/                  vp9_dx_torch(device) and the vpx_codec_* API
   tools/vpxdec.py         `python -m cuda_vp9_torch.tools.vpxdec --md5`

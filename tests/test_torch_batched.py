@@ -24,6 +24,8 @@ and the stream axis of the loop-filter kernel.
     rows as they were and writes nothing for that stream;
   * frames sent out of the batch and back: the per-stream TorchRecon and
     the batched pool each resync the slots the other route refreshed;
+  * validate_against_oracle reaches the per-stream TorchRecon of a frame
+    that leaves the batch, and leaves the batched rounds unchecked;
   * `MultiStreamDecoder` on kf01 and kf03 with `TorchRecon("cpu")`;
   * on the card (marked `cuda`; skips without a device): the stream-axis
     kernel against `lf_frames_plain` at N = 16 on the 640x384 canvas,
@@ -257,6 +259,34 @@ def test_frames_leaving_the_batch_and_returning(monkeypatch):
     assert got == _golden("in01_176x144")[:5]
     rec = bd.recons[0]
     assert (rec.frames_unbatched, rec.frames_on_device, bd.rounds) == (2, 5, 3)
+
+
+def test_validate_reaches_the_frames_that_leave_the_batch(monkeypatch):
+    """validate_against_oracle goes to the stream's own TorchRecon: with
+    the oracle moved by one pixel, in01's frame 1, sent out of the batch,
+    raises; frame 0, batched, is not checked (as in JAX, whose batched
+    decoder never reads the flag)."""
+    from cuda_vp9_torch.ops.ref import recon as ref_recon
+    oracle = ref_recon.reconstruct_frame
+
+    def moved(plan, refs):
+        planes = oracle(plan, refs)
+        planes[0][3, 4] += 1
+        return planes
+
+    can_batch = MS.BatchedTorchDecoder._can_batch
+    monkeypatch.setattr(ref_recon, "reconstruct_frame", moved)
+    monkeypatch.setattr(
+        MS.BatchedTorchDecoder, "_can_batch",
+        lambda self, hdr, refs: hdr.frame_is_intra_only
+        and can_batch(self, hdr, refs))
+    packets = _packets("in01_176x144", 2)
+    bd = MS.BatchedTorchDecoder(1, "cpu", validate_against_oracle=True)
+    bd.decode_round([packets[0]])
+    with pytest.raises(AssertionError, match=r"plane 0: 1 px, first rows "
+                                             r"\[3\] cols \[4\]"):
+        bd.decode_round([packets[1]])
+    assert bd.rounds == 1 and bd._solo[0].validate
 
 
 def test_multistream_decoder_round_robin():

@@ -16,7 +16,11 @@ streams (large/p1_05 8-bit, large/p3_02 10-bit) and the scaled-reference
 4:4:4 and 4:2:2 streams (large/sc02, large/sc03) are decoded whole, and
 the packer's scaled sub-8x8 branch is held against the JAX package's host
 oracle at 4:4:4 and 4:2:2 (frame 1 of p1_01 and p1_02, with references
-made 8 columns wider).  A subprocess decodes
+made 8 columns wider).  TorchRecon's modes: validate_against_oracle
+passes on the first frames of kf02 and in01 and names the plane, rows and
+columns of a one-pixel difference; defer_output fetches nothing, reads a
+frame whose ring row still holds it and refuses one whose row was reused,
+and sync() returns the ring's checksum.  A subprocess decodes
 kf02 and p2_01 through `python -m cuda_vp9_torch.tools.vpxdec` with `jax`
 and `cuda_vp9_tpu` blocked, as on a machine without them.  The 1080p
 10-bit stream hb01 (frame 0) and the 640x360 4:4:0 stream p1_06 are
@@ -32,10 +36,13 @@ import pytest
 import torch
 
 from cuda_vp9_torch import convert
+from cuda_vp9_torch.containers import IvfReader
 from cuda_vp9_torch.decoder.constants import BLOCK_8X8
 from cuda_vp9_torch.decoder.frame import (NativeVp9Decoder,
                                           native_decode_stream_md5)
+from cuda_vp9_torch.ops.ref import recon as ref_recon
 from cuda_vp9_torch.runtime.pipeline import TorchRecon
+from cuda_vp9_torch.utils.md5 import frame_md5
 
 from conftest import FIXTURES
 
@@ -263,6 +270,70 @@ def test_pool_from_refs_matches_device_pool_10bit_444():
     pool = convert.pool_from_refs(dec.ref_slots, rec._geom, "cpu")
     assert torch.equal(pool, rec._pool)
     assert pool.max() > 255
+
+
+def _frames(recon, name, n):
+    """The first n packets of a fixture through NativeVp9Decoder(recon):
+    its DecodedFrames, nothing read yet."""
+    dec = NativeVp9Decoder(recon_fn=recon)
+    frames = []
+    with IvfReader(str(FIXTURES / f"{name}.ivf")) as r:
+        for data, _ in list(r)[:n]:
+            dec.decode(data)
+            frames.extend(dec.frames())
+    return frames
+
+
+@pytest.mark.parametrize("name,n", [("kf02_176x144", 2),
+                                    ("in01_176x144", 3)])
+def test_validate_against_oracle_passes_on_real_streams(name, n):
+    rec = TorchRecon("cpu", validate_against_oracle=True)
+    frames = _frames(rec, name, n)
+    assert [frame_md5(f.visible_planes()) for f in frames] == \
+        _golden(name)[:n]
+    assert rec.frames_on_device == n and rec.frames_on_host == 0
+
+
+def test_validate_against_oracle_names_the_first_difference(monkeypatch):
+    """The oracle moved by one pixel (plane 1, row 5, column 7): the device
+    frame no longer equals it, and the message names where."""
+    oracle = ref_recon.reconstruct_frame
+
+    def moved(plan, refs):
+        planes = oracle(plan, refs)
+        planes[1][5, 7] += 1
+        return planes
+
+    monkeypatch.setattr(ref_recon, "reconstruct_frame", moved)
+    with pytest.raises(AssertionError, match=r"fused recon mismatch plane 1: "
+                                             r"1 px, first rows \[5\] "
+                                             r"cols \[7\]"):
+        _frames(TorchRecon("cpu", validate_against_oracle=True),
+                "kf01_64x64", 1)
+
+
+def test_defer_output_reads_live_rows_and_refuses_reused_ones(monkeypatch):
+    """A ring of 4 rows over in01's first 6 frames: frames 4 and 5 reuse
+    rows 0 and 1.  Nothing is fetched at the wrap; frames 3 and 5 read
+    back from the live ring, MD5-exact; frame 0 raises."""
+    monkeypatch.setattr(TorchRecon, "RING", 4)
+    rec = TorchRecon("cpu", defer_output=True)
+    frames = _frames(rec, "in01_176x144", 6)
+    assert len(frames) == 6
+    assert all(f.planes._planes is None for f in frames)
+    golden = _golden("in01_176x144")
+    for k in (5, 3):
+        assert frame_md5(frames[k].visible_planes()) == golden[k]
+    for k in (0, 1):
+        with pytest.raises(RuntimeError, match="defer_output"):
+            frames[k].visible_planes()
+    check = rec.sync()
+    assert isinstance(check, int) and check > 0
+    assert rec.frames_on_host == 0 and rec.frames_on_device == 6
+
+
+def test_sync_before_any_frame_is_zero():
+    assert TorchRecon("cpu", defer_output=True).sync() == 0
 
 
 def test_cli_decodes_without_jax():
