@@ -134,7 +134,23 @@ Phases, each of which exits non-zero on failure:
          oracle); TorchRecon("cuda", defer_output=True) on nc03 and hd01:
          no frame fetched, none on the host, and sync() equal to the ring
          checksum of the same decode with read-back, whose warm rate is
-         printed beside the deferred one.
+         printed beside the deferred one;
+       - the encode side (phase 4g): nc03's first 4 frames (640x360),
+         decoded on the card, encoded by the port's Vp9Encoder on the host
+         (gop 4: a keyframe and 3 inter frames) to an .ivf, with each
+         frame's host seconds on a line of its own; that file through
+         vpxdec --device cuda --md5 (its main()): every frame's MD5 equal
+         to the encoder's reconstruction, every frame on the device, the
+         residual, intra and MC kernels launched, no plain version; the
+         metrics CLI (tools/metrics.py main()) with --device cuda on the
+         source .yuv against the .ivf: each frame's line equal to the
+         values of the same functions on CPU tensors, the SSE, sample
+         counts and PSNR exactly, SSIM, FastSSIM and PSNR-HVS within
+         METRICS_TOL; each metric's wall clock on the card and on the CPU
+         for a pair of 640x360 frames (nc03) and of 1920x1080 frames
+         (hd01); 2 VP8 frames through vpxenc --codec vp8, decoded through
+         vp8_dx() (vpxdec's fourcc probe) with no kernel launched and a
+         Y-PSNR against the source above VP8_PSNR_FLOOR.
   5. time a second, warm decode of nc03, hd01, cp01, hb01 and xl01, and of
      16 x nc03 through BatchedTorchDecoder (aggregate fps), and each
      kernel against its plain version (CUDA events): the intra and the
@@ -2195,6 +2211,193 @@ def multi_card_phase(card, counted, PG):
             raise SystemExit(f"{name}: defer_output run failed")
 
 
+# phase 4g: the stream encoded (its first frames, full width), the metrics'
+# tolerance against CPU tensors (the tests' TOL; the SSE, the sample
+# counts and PSNR exactly), and the pairs the metrics are timed on
+ENC_SOURCE = ("nc03_640x360_occl", 4)
+METRICS_TOL = 1e-10
+METRIC_PAIRS = (("nc03_640x360_occl", 2), ("hd01_1920x1080_t4", 2))
+VP8_PSNR_FLOOR = 30.0
+
+
+def host_planes(frames):
+    return [[np.ascontiguousarray(p) for p in f.visible_planes()]
+            for f in frames]
+
+
+def metric_values(M, a, b, device):
+    """Every metric of one frame pair on `device`: (exact, approximate),
+    the SSE, sample counts and PSNRs, and SSIM, FastSSIM (dB, y, u, v)
+    and PSNR-HVS (dB, y, u, v)."""
+    st = M.calc_psnr(a, b, device=device)
+    exact = st["sse"] + st["samples"] + st["psnr"]
+    approx = [M.calc_ssim(a, b, device=device)[0],
+              *M.calc_fastssim(a, b, device=device),
+              *M.psnrhvs(a, b, device=device)]
+    return exact, approx
+
+
+def encode_phase(card, counted, PG, IN, RS, MC):
+    """Phase 4g: the encode side.  nc03's first frames, decoded on the
+    card, encoded by the port's Vp9Encoder on the host (keyframe + inter
+    frames) to an .ivf; that file through vpxdec --device cuda --md5
+    (every frame's MD5 the encoder's reconstruction, every frame on the
+    device, the residual, intra and MC kernels launched, no plain
+    version); the metrics CLI with --device cuda on the source .yuv
+    against the .ivf, each metric held against the same function on CPU
+    tensors; each metric's card and CPU time at 640x360 and 1920x1080;
+    two VP8 frames through vpxenc --codec vp8 and vp8_dx() (Y-PSNR against
+    the source above VP8_PSNR_FLOOR).  Exits on a failure."""
+    import io
+    import re
+    from contextlib import redirect_stderr, redirect_stdout
+
+    from cuda_vp9_torch.containers import IvfReader, IvfWriter
+    from cuda_vp9_torch.encoder import Vp9Encoder
+    from cuda_vp9_torch.tools import metrics as M
+    from cuda_vp9_torch.tools import vpxdec, vpxenc
+    from cuda_vp9_torch.utils.md5 import frame_md5
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    name, n = ENC_SOURCE
+    md5s, recon, _, frames = recon_run(name, n)
+    src = host_planes(frames)
+    if md5s != golden_md5(name)[:n] or recon.frames_on_device != n:
+        raise SystemExit(f"phase 4g: {name} did not decode on the card")
+    h, w = src[0][0].shape
+    yuv = out_dir / "enc_src.yuv"
+    yuv.write_bytes(b"".join(p.tobytes() for f in src for p in f))
+
+    # the VP9 encoder, on the host
+    ivf = out_dir / "enc_vp9.ivf"
+    enc = Vp9Encoder(w, h, base_qindex=60, gop=n)
+    rec_md5, secs = [], []
+    with IvfWriter(str(ivf), b"VP90", w, h) as wr:
+        for i, planes in enumerate(src):
+            t0 = time.perf_counter()
+            pkt = enc.encode_frame(planes)
+            secs.append(time.perf_counter() - t0)
+            wr.write_frame(pkt, i)
+            y, u, v = enc._last_recon
+            ch, cw = (h + 1) >> 1, (w + 1) >> 1
+            rec_md5.append(frame_md5([y[:h, :w].astype(np.uint8),
+                                      u[:ch, :cw].astype(np.uint8),
+                                      v[:ch, :cw].astype(np.uint8)]))
+            print(f"vp9 encode {w}x{h} frame {i} "
+                  f"({'key' if i == 0 else 'inter'}): {len(pkt)} bytes, "
+                  f"host {secs[-1]:.3f} s")
+    print(f"vp9 encode {w}x{h}: {n} frames, host seconds per frame "
+          f"{[round(s, 3) for s in secs]}, modes {enc.mode_counts}")
+
+    # its stream through vpxdec on the card, counted
+    for k in counted:
+        k.reset_counts()
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = vpxdec.main([str(ivf), "--device", "cuda", "--md5",
+                          "--summary"])
+    got = [ln.split()[0] for ln in out.getvalue().splitlines()]
+    summary = err.getvalue().strip()
+    plain = sum(k.plain_calls for k in counted)
+    m = re.search(r"frames on device (\d+), on host (\d+)", summary)
+    print(f"vpxdec --md5 {ivf.name}: rc {rc}, MD5s equal to the encoder's "
+          f"reconstruction {got == rec_md5}, summary '{summary}', launches "
+          f"intra {IN.launches}, residual {RS.launches}, mc {MC.launches}, "
+          f"expand_pages {PG.launches}, plain calls {plain}")
+    if rc or got != rec_md5 or m is None or int(m[1]) != n or int(m[2]) \
+            or not (IN.launches and RS.launches and MC.launches) or plain:
+        raise SystemExit("phase 4g: the encoded stream failed its decode "
+                         "on the card")
+
+    # the metrics CLI on the card, and each metric against CPU tensors
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = M.main([str(yuv), str(ivf), f"{w}x{h}", "--device", "cuda"])
+    lines = out.getvalue().splitlines()
+    dec_planes = []
+    with IvfReader(str(ivf)) as r:
+        from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
+        from cuda_vp9_torch.runtime.pipeline import TorchRecon
+        dec = NativeVp9Decoder(recon_fn=TorchRecon("cuda"))
+        for data, _ in r:
+            dec.decode(data)
+            dec_planes.extend(host_planes(dec.frames()))
+    worst, exact_ok, cli_ok = 0.0, True, rc == 0 and len(lines) == n + 1
+    for i, (a, b) in enumerate(zip(src, dec_planes)):
+        ex_c, ap_c = metric_values(M, a, b, "cuda")
+        ex_h, ap_h = metric_values(M, a, b, "cpu")
+        exact_ok &= ex_c == ex_h
+        worst = max(worst, max(abs(x - y) for x, y in zip(ap_c, ap_h)))
+        want = (f"frame {i}:  psnr {ex_h[-4]:.4f}  ssim {ap_h[0]:.5f}  "
+                f"fastssim {ap_h[1]:.4f}  psnrhvs {ap_h[5]:.4f}")
+        cli_ok &= i < len(lines) and lines[i] == want
+    print(f"metrics --device cuda {yuv.name} {ivf.name}: rc {rc}, "
+          f"{lines[-1] if lines else None}; per frame equal to the CPU "
+          f"tensors' values printed {cli_ok}; SSE, samples and PSNR exact "
+          f"{exact_ok}; SSIM, FastSSIM and PSNR-HVS max abs difference "
+          f"{worst:.3e} (tolerance {METRICS_TOL})")
+    if not (cli_ok and exact_ok and worst <= METRICS_TOL):
+        raise SystemExit("phase 4g: the metrics on the card disagree with "
+                         "the CPU")
+
+    # each metric's time on the card (planes already there, the call's
+    # wall clock: each ends in a read-back) and on the CPU
+    for pname, k in METRIC_PAIRS:
+        _, _, _, fr = recon_run(pname, k)
+        a, b = host_planes(fr)[:2]
+        ph, pw = a[0].shape
+        row = []
+        for fn in ("calc_psnr", "calc_ssim", "calc_fastssim", "psnrhvs"):
+            f = getattr(M, fn)
+            ta = [M.to_device(p, "cuda") for p in a]
+            tb = [M.to_device(p, "cuda") for p in b]
+            f(ta, tb, device="cuda")
+            card_s = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f(ta, tb, device="cuda")
+                card_s.append(time.perf_counter() - t0)
+            ha = [M.to_device(p, "cpu") for p in a]
+            hb = [M.to_device(p, "cpu") for p in b]
+            cpu_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                f(ha, hb, device="cpu")
+                cpu_s.append(time.perf_counter() - t0)
+            row.append(f"{fn} card {statistics.median(card_s) * 1e3:.3f} "
+                       f"ms, CPU {statistics.median(cpu_s) * 1e3:.3f} ms")
+        print(f"metrics {pw}x{ph} ({pname} frames 0 and 1), median wall "
+              f"clock of one call: {'; '.join(row)}; CPU threads "
+              f"{torch.get_num_threads()} [{card}]")
+
+    # two VP8 frames through vpxenc, decoded through vp8_dx()
+    vp8_ivf, vp8_yuv = out_dir / "enc_vp8.ivf", out_dir / "enc_vp8.yuv"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stderr(err):
+        rc = vpxenc.main([str(yuv), "-o", str(vp8_ivf), "--codec", "vp8",
+                          "--width", str(w), "--height", str(h),
+                          "--limit", "2", "--kf-max-dist", "2"])
+    vp8_s = time.perf_counter() - t0
+    for k in counted:
+        k.reset_counts()
+    out = io.StringIO()
+    with redirect_stdout(out), redirect_stderr(io.StringIO()):
+        rc8 = vpxdec.main([str(vp8_ivf), "--md5", "-o", str(vp8_yuv)])
+    got8 = [ln.split()[0] for ln in out.getvalue().splitlines()]
+    launches = sum(k.launches for k in counted)
+    psnr8 = [M.calc_psnr(a, b, device="cuda")["psnr"][1] for a, b in
+             zip(src, M.read_frames(str(vp8_yuv), w, h))]
+    print(f"vpxenc --codec vp8 {w}x{h}: rc {rc}, 2 frames in {vp8_s:.3f} "
+          f"s on the host ({err.getvalue().strip()}); vp8_dx() decode rc "
+          f"{rc8}, {len(got8)} frames, Y-PSNR against the source "
+          f"{[round(x, 3) for x in psnr8]} dB, kernel launches {launches}")
+    if rc or rc8 or len(got8) != 2 or len(psnr8) != 2 \
+            or min(psnr8) < VP8_PSNR_FLOOR or launches:
+        raise SystemExit("phase 4g: the VP8 encode failed its decode")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2481,6 +2684,11 @@ def main() -> int:
     t0 = time.perf_counter()
     multi_card_phase(card, counted, PG)
     print(f"phase 4f: {time.perf_counter() - t0:.2f} s")
+
+    # 4g. the encode side and the metrics
+    t0 = time.perf_counter()
+    encode_phase(card, counted, PG, IN, RS, MC)
+    print(f"phase 4g: {time.perf_counter() - t0:.2f} s")
 
     # 5. warm decode rate and kernel timing
     for k in counted:

@@ -29,6 +29,16 @@ references):
   tools/vpxdec.py         `python -m cuda_vp9_torch.tools.vpxdec --md5`
   tools/profile_decode.py time per stage of the frame step
   tools/tile_probe.py     the tile probe on the card
+  tools/metrics.py        PSNR, SSIM, FastSSIM, PSNR-HVS as torch ops on a
+                          device (and tools/tiny_ssim.py)
+
+The encode side is host NumPy, as the reference's encoder runs on the
+CPU: `encoder/` (Vp9Encoder, Vp9SvcEncoder), `vp8/encoder.py`
+(Vp8Encoder), `containers/y4m.py` and `IvfWriter`, `tools/vpxenc.py` and
+`tools/vp9_spatial_svc_encoder.py`; its symbol contexts come from the
+Python parse helpers in `decoder/` (tiles, decodemv, mvref, detokenize,
+compressed_header), while every stream the port decodes is parsed by
+`native/`.
 
 The package imports torch and never jax or cuda_vp9_tpu.  The C++ host
 library and the CUDA kernels are built at first use into

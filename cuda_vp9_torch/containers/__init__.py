@@ -1,4 +1,4 @@
-from .ivf import IvfReader, is_ivf, is_vp8
+from .ivf import IvfReader, IvfWriter, is_ivf, is_vp8
 from .webm import WebmReader
 
 

@@ -1,7 +1,7 @@
-"""IVF container reader.
+"""IVF container read/write.
 
-Capability parity with the reference's IVF demux
-(`libvpx/ivfdec.c`, `libvpx/video_reader.c`): 32-byte
+Capability parity with the reference's IVF demux/mux
+(`libvpx/ivfdec.c`, `libvpx/ivfenc.c`, `libvpx/video_reader.c`): 32-byte
 file header ("DKIF"), 12-byte per-frame headers (LE frame size + 64-bit pts).
 """
 
@@ -107,3 +107,46 @@ class IvfReader:
     def __exit__(self, *exc):
         self.close()
 
+
+class IvfWriter:
+    def __init__(self, dst, fourcc: bytes, width: int, height: int,
+                 timebase_num: int = 30, timebase_den: int = 1):
+        if isinstance(dst, (str, bytes)) and not hasattr(dst, "write"):
+            self._f: BinaryIO = open(dst, "wb")
+            self._owns = True
+        else:
+            self._f = dst
+            self._owns = False
+        self._fourcc = fourcc
+        self._w, self._h = width, height
+        self._tb = (timebase_num, timebase_den)
+        self._count = 0
+        self._write_header()
+
+    def _write_header(self):
+        self._f.seek(0)
+        self._f.write(_DKIF)
+        self._f.write(struct.pack("<HH", 0, IVF_FILE_HDR_SZ))
+        self._f.write(self._fourcc)
+        self._f.write(struct.pack("<HH", self._w, self._h))
+        self._f.write(struct.pack("<II", self._tb[0], self._tb[1]))
+        self._f.write(struct.pack("<II", self._count, 0))
+
+    def write_frame(self, data: bytes, pts: int):
+        self._f.write(struct.pack("<I", len(data)))
+        self._f.write(struct.pack("<q", pts))
+        self._f.write(data)
+        self._count += 1
+
+    def close(self):
+        pos = self._f.tell()
+        self._write_header()
+        self._f.seek(pos)
+        if self._owns:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

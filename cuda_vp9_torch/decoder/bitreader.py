@@ -1,26 +1,28 @@
-"""VP9 raw bit reader and superframe index, and VP8's bool decoder.
+"""VP9 raw bit reader and superframe index, and the bool decoder.
 
 Capability parity with the reference's `vpx_dsp/bitreader_buffer.{h,c}`
 (MSB-first raw bit reader used for the uncompressed frame header),
-`vp9_parse_superframe_index`, and VP8's bool decoder
-(`vp8/decoder/dboolhuff.{h,c}`, implemented from the normative
-arithmetic-decoding process of RFC 6386 §7: maintain an
-arbitrary-precision value window with `bits` live low-order bits;
-`split = 1 + ((range - 1) * prob >> 8)` and renormalize `range` into
-[128, 255]).  VP9's tile bitstreams are bool-decoded in the C++ parser
-(native/); `BoolDecoder` here serves the VP8 decoder (vp8/).
+`vp9_parse_superframe_index`, and the bool decoder (`vpx_dsp/bitreader.
+{h,c}`, VP8's `vp8/decoder/dboolhuff.{h,c}`), implemented from the
+normative arithmetic-decoding process (VP9 spec §9.2 / RFC 6386 §7):
+maintain an arbitrary-precision value window with `bits` live low-order
+bits; `split = 1 + ((range - 1) * prob >> 8)` and renormalize `range`
+into [128, 255].  The decoder bool-decodes VP9's tile bitstreams in the
+C++ parser (native/); `BoolDecoder` here serves the VP8 decoder (vp8/)
+and the Python parse helpers the encoder writes against (encoder/).
 """
 
 from __future__ import annotations
 
 
 class BoolDecoder:
-    """VP8's boolean (range) decoder over a byte buffer (RFC 6386 §7.1:
-    no marker bit, unlike VP9's `vpx_reader_init`)."""
+    """The boolean (range) decoder over a byte buffer."""
 
-    __slots__ = ("data", "pos", "end", "value", "range", "bits", "_virtual")
+    __slots__ = ("data", "pos", "end", "value", "range", "bits", "_virtual",
+                 "marker_bad")
 
-    def __init__(self, data, start: int = 0, size: int | None = None):
+    def __init__(self, data, start: int = 0, size: int | None = None,
+                 marker: bool = True):
         self.data = data
         self.pos = start
         self.end = start + (len(data) - start if size is None else size)
@@ -29,6 +31,10 @@ class BoolDecoder:
         self.bits = -8  # forces initial fill of at least one byte
         self._virtual = 0  # zero bytes synthesized past the end (overrun)
         self._fill()
+        # vpx_reader_init consumes a marker bit that must decode to zero
+        # (vpx_dsp/bitreader.c:38 `return vpx_read_bit(r) != 0`).  VP8's
+        # bool decoder (RFC 6386 §7.1) has no marker bit: marker=False.
+        self.marker_bad = (self.read_bit() != 0) if marker else False
 
     def _fill(self):
         # Load up to 7 bytes at a time into the low bits of the window.
@@ -81,6 +87,14 @@ class BoolDecoder:
         for _ in range(n):
             v = (v << 1) | self.read(128)
         return v
+
+    def read_tree(self, tree, probs) -> int:
+        """Walk a vpx token tree: negative/leaf values end the walk."""
+        i = 0
+        while True:
+            i = int(tree[i + self.read(probs[i >> 1])])
+            if i <= 0:
+                return -i
 
 
 class BitReader:

@@ -1,9 +1,14 @@
 """VP9 normative tables: the auto-generated spec constants (tables_gen.py)
-as numpy arrays.  The probability contexts and their adaptation live in
-the C++ parser (native/).
+as numpy arrays, and the `FrameContext` / `FrameCounts` probability state
+(parity with libvpx `FRAME_CONTEXT` / `FRAME_COUNTS`,
+vp9/common/vp9_entropymode.h).  The decoder's contexts and their
+adaptation live in the C++ parser (native/); `FrameContext` is here for
+the encoder (encoder/) and the Python parse helpers it writes against.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 
@@ -145,3 +150,134 @@ FILTER_KERNELS = np.stack([
     np.array(T.BILINEAR_FILTERS, np.int32),
 ])
 FILTER_4TAP = np.array(T.SUB_PEL_FILTERS_4, np.int32)
+
+# ---------------------------------------------------------------- contexts
+
+
+def _nmv_default():
+    j, comps = T.DEFAULT_NMV_CONTEXT
+    out = {"joints": np.array(j, np.uint8)}
+    names = ["sign", "classes", "class0", "bits", "class0_fp", "fp",
+             "class0_hp", "hp"]
+    for n in names:
+        out[n] = np.stack([np.array(c[names.index(n)], np.uint8)
+                           for c in comps])
+    return out
+
+
+@dataclass
+class FrameContext:
+    """All backward-adaptable probabilities (libvpx FRAME_CONTEXT)."""
+
+    y_mode: np.ndarray          # [BLOCK_SIZE_GROUPS][9]
+    uv_mode: np.ndarray         # [INTRA_MODES][9]
+    partition: np.ndarray       # [PARTITION_CONTEXTS][3]
+    coef: np.ndarray            # [TX][PLANE][REF][BAND][CTX][3]
+    switchable_interp: np.ndarray  # [4][2]
+    inter_mode: np.ndarray      # [7][3]
+    intra_inter: np.ndarray     # [4]
+    comp_inter: np.ndarray      # [5]
+    comp_ref: np.ndarray        # [5]
+    single_ref: np.ndarray      # [5][2]
+    tx32: np.ndarray            # [2][3]
+    tx16: np.ndarray            # [2][2]
+    tx8: np.ndarray             # [2][1]
+    skip: np.ndarray            # [3]
+    mv_joints: np.ndarray       # [3]
+    mv_sign: np.ndarray         # [2]
+    mv_classes: np.ndarray      # [2][10]
+    mv_class0: np.ndarray       # [2][1]
+    mv_bits: np.ndarray         # [2][10]
+    mv_class0_fp: np.ndarray    # [2][2][3]
+    mv_fp: np.ndarray           # [2][3]
+    mv_class0_hp: np.ndarray    # [2]
+    mv_hp: np.ndarray           # [2]
+
+    @staticmethod
+    def default() -> "FrameContext":
+        nmv = _nmv_default()
+        return FrameContext(
+            y_mode=np.array(T.DEFAULT_IF_Y_PROBS, np.uint8),
+            uv_mode=np.array(T.DEFAULT_IF_UV_PROBS, np.uint8),
+            partition=np.array(T.DEFAULT_PARTITION_PROBS, np.uint8),
+            coef=DEFAULT_COEF_PROBS.copy(),
+            switchable_interp=np.array(T.DEFAULT_SWITCHABLE_INTERP_PROB,
+                                       np.uint8),
+            inter_mode=np.array(T.DEFAULT_INTER_MODE_PROBS, np.uint8),
+            intra_inter=np.array(T.DEFAULT_INTRA_INTER_P, np.uint8),
+            comp_inter=np.array(T.DEFAULT_COMP_INTER_P, np.uint8),
+            comp_ref=np.array(T.DEFAULT_COMP_REF_P, np.uint8),
+            single_ref=np.array(T.DEFAULT_SINGLE_REF_P, np.uint8),
+            tx32=np.array(T.DEFAULT_TX_PROBS[0], np.uint8),
+            tx16=np.array(T.DEFAULT_TX_PROBS[1], np.uint8),
+            tx8=np.array(T.DEFAULT_TX_PROBS[2], np.uint8),
+            skip=np.array(T.DEFAULT_SKIP_PROBS, np.uint8),
+            mv_joints=nmv["joints"][:3] if nmv["joints"].shape == (3,)
+            else nmv["joints"],
+            mv_sign=nmv["sign"],
+            mv_classes=nmv["classes"],
+            mv_class0=nmv["class0"],
+            mv_bits=nmv["bits"],
+            mv_class0_fp=nmv["class0_fp"],
+            mv_fp=nmv["fp"],
+            mv_class0_hp=nmv["class0_hp"],
+            mv_hp=nmv["hp"],
+        )
+
+    def copy(self) -> "FrameContext":
+        return FrameContext(**{f.name: getattr(self, f.name).copy()
+                               for f in fields(self)})
+
+
+@dataclass
+class FrameCounts:
+    """Symbol counts accumulated during decode for backward adaptation."""
+
+    y_mode: np.ndarray = field(
+        default_factory=lambda: np.zeros((4, 10), np.uint32))
+    uv_mode: np.ndarray = field(
+        default_factory=lambda: np.zeros((10, 10), np.uint32))
+    partition: np.ndarray = field(
+        default_factory=lambda: np.zeros((16, 4), np.uint32))
+    coef: np.ndarray = field(
+        default_factory=lambda: np.zeros((4, 2, 2, 6, 6, 4), np.uint32))
+    eob_branch: np.ndarray = field(
+        default_factory=lambda: np.zeros((4, 2, 2, 6, 6), np.uint32))
+    switchable_interp: np.ndarray = field(
+        default_factory=lambda: np.zeros((4, 3), np.uint32))
+    inter_mode: np.ndarray = field(
+        default_factory=lambda: np.zeros((7, 4), np.uint32))
+    intra_inter: np.ndarray = field(
+        default_factory=lambda: np.zeros((4, 2), np.uint32))
+    comp_inter: np.ndarray = field(
+        default_factory=lambda: np.zeros((5, 2), np.uint32))
+    comp_ref: np.ndarray = field(
+        default_factory=lambda: np.zeros((5, 2), np.uint32))
+    single_ref: np.ndarray = field(
+        default_factory=lambda: np.zeros((5, 2, 2), np.uint32))
+    tx32: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 4), np.uint32))
+    tx16: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 3), np.uint32))
+    tx8: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2), np.uint32))
+    skip: np.ndarray = field(
+        default_factory=lambda: np.zeros((3, 2), np.uint32))
+    mv_joints: np.ndarray = field(
+        default_factory=lambda: np.zeros(4, np.uint32))
+    mv_sign: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2), np.uint32))
+    mv_classes: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 11), np.uint32))
+    mv_class0: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2), np.uint32))
+    mv_bits: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 10, 2), np.uint32))
+    mv_class0_fp: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2, 4), np.uint32))
+    mv_fp: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 4), np.uint32))
+    mv_class0_hp: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2), np.uint32))
+    mv_hp: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2), np.uint32))

@@ -6,13 +6,16 @@ entropy parse + NumPy reconstruction of key AND inter frames
 six-tap and bilinear sub-pel MC), error concealment (concealment.py)
 and the display-side postproc (postproc.py), validated per-frame
 against libavcodec's normative `vp8` decoder MD5s.  The reference
-decodes VP8 on the CPU too: its GPU passes are VP9's only.  Nothing
-here puts work on a torch device.
+decodes VP8 on the CPU too: its GPU passes are VP9's only.  Plus a VP8
+encoder (encoder.py): keyframe intra + P-frames with loop filter and
+one-pass rate control, whose in-loop reconstruction is bit-identical to
+the decoder by construction.  Nothing here puts work on a torch device.
 """
 
 import numpy as np
 
 from .decoder import ALTREF, GOLDEN, LAST, Vp8Decoder, Vp8Error  # noqa: F401
+from .encoder import Vp8Encoder  # noqa: F401
 
 
 class Vp8StreamDecoder:

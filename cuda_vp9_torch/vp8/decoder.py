@@ -359,7 +359,7 @@ class Vp8Decoder:
                 raise Vp8Error("first partition overruns frame")
             self.frame_corrupt = True
             first_part_size = len(data) - pos
-        bc = BoolDecoder(data, pos, first_part_size)
+        bc = BoolDecoder(data, pos, first_part_size, marker=False)
 
         if hdr.frame_type == 0:
             bc.read_bit()                  # colorspace
@@ -406,7 +406,8 @@ class Vp8Decoder:
                     raise Vp8Error("token partition overruns frame")
                 self.frame_corrupt = True
                 sz = max(0, len(data) - off)
-            parts.append(BoolDecoder(data, min(off, len(data)), sz))
+            parts.append(BoolDecoder(data, min(off, len(data)), sz,
+                                     marker=False))
             off += sz
 
         hdr.base_qindex = bc.read_literal(7)

@@ -1,8 +1,10 @@
 """The port keeps its own copy of the host side.
 
-  * No module of `cuda_vp9_torch/` (the `vp8/` and `parallel/` modules
-    among them), and not `chip_smoke.py`, imports `jax` or
-    `cuda_vp9_tpu` (an AST scan of every import statement).
+  * No module of `cuda_vp9_torch/` (the `vp8/`, `parallel/` and
+    `encoder/` modules, the Python parse helpers the encoder writes
+    against, and the encode and metrics tools among them), and not
+    `chip_smoke.py`, imports `jax` or `cuda_vp9_tpu` (an AST scan of
+    every import statement).
   * The port's packer gives the JAX package's flat, byte for byte, for
     frame 0 of kf02 (8-bit 4:2:0), p2_01 (10-bit 4:2:0) and p1_01 (8-bit
     4:4:4): the C++ packer for 4:2:0 frames and `runtime/pack.pack_frame`
@@ -37,10 +39,20 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 30, "the port's modules were not found"
     vp8 = {f.name for f in files if f.parent.name == "vp8"}
     assert vp8 == {"__init__.py", "concealment.py", "decoder.py",
-                   "postproc.py", "pptables.py", "recon.py",
+                   "encoder.py", "postproc.py", "pptables.py", "recon.py",
                    "tables_gen.py"}, vp8
     parallel = {f.name for f in files if f.parent.name == "parallel"}
     assert parallel == {"__init__.py", "dryrun.py", "worker.py"}, parallel
+    encoder = {f.name for f in files if f.parent.name == "encoder"}
+    assert encoder == {"__init__.py", "bitwriter.py", "encoder.py",
+                       "interframe.py", "motion.py", "svc.py",
+                       "tokenize.py", "transforms.py"}, encoder
+    rel = {str(f.relative_to(ROOT / "cuda_vp9_torch")) for f in files}
+    assert {"containers/y4m.py", "decoder/tiles.py", "decoder/decodemv.py",
+            "decoder/mvref.py", "decoder/compressed_header.py",
+            "decoder/detokenize.py", "tools/vpxenc.py",
+            "tools/vp9_spatial_svc_encoder.py", "tools/metrics.py",
+            "tools/tiny_ssim.py"} <= rel
     bad = [f"{f.relative_to(ROOT)}: {m}"
            for f in files + [ROOT / "chip_smoke.py"]
            for m in _absolute_imports(f) if m in FORBIDDEN]
