@@ -41,6 +41,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import spans
+
 # --------------------------------------------------------------- error codes
 
 VPX_CODEC_OK = 0
@@ -293,10 +295,16 @@ def vpx_codec_dec_init(ctx: CodecCtx, iface, cfg: Optional[DecCfg] = None,
 
 def vpx_codec_decode(ctx: CodecCtx, data: Optional[bytes],
                      user_priv=None, deadline: int = 0) -> int:
-    """vpx_codec_decode parity (vpx/src/vpx_decoder.c:104).
+    """vpx_codec_decode parity (vpx/src/vpx_decoder.c:104), in an
+    api.vpx_codec_decode span (`utils/spans.py`).
 
     data=None flushes (end of stream), matching the reference's NULL-data
     convention."""
+    with spans.span("api.vpx_codec_decode"):
+        return _decode(ctx, data, user_priv)
+
+
+def _decode(ctx: CodecCtx, data: Optional[bytes], user_priv) -> int:
     if ctx is None or ctx._dec is None:
         return VPX_CODEC_INVALID_PARAM
     if data is None:
@@ -311,8 +319,8 @@ def vpx_codec_decode(ctx: CodecCtx, data: Optional[bytes],
             # VP9_DECODE_SVC_SPATIAL_LAYER: decode only the first
             # layer+1 frames of each superframe (vp9_dx_iface.c:358)
             from ..decoder.bitreader import parse_superframe_index
-            spans = parse_superframe_index(data)
-            for off, sz in spans[:ctx._svc_layer + 1]:
+            layers = parse_superframe_index(data)
+            for off, sz in layers[:ctx._svc_layer + 1]:
                 ctx._dec.decode(data[off:off + sz])
         else:
             ctx._dec.decode(data)
@@ -330,7 +338,13 @@ def vpx_codec_decode(ctx: CodecCtx, data: Optional[bytes],
 
 
 def vpx_codec_get_frame(ctx: CodecCtx, it: FrameIter) -> Optional[Image]:
-    """vpx_codec_get_frame parity (vpx/src/vpx_decoder.c:123)."""
+    """vpx_codec_get_frame parity (vpx/src/vpx_decoder.c:123), in an
+    api.vpx_codec_get_frame span (`utils/spans.py`)."""
+    with spans.span("api.vpx_codec_get_frame"):
+        return _get_frame(ctx, it)
+
+
+def _get_frame(ctx: CodecCtx, it: FrameIter) -> Optional[Image]:
     if ctx is None or it is None:
         return None
     if it.pos >= len(ctx._frames):
@@ -366,7 +380,7 @@ def _attach_external_fb(ctx, img, frame):
     longer references it -- here, when the next frame displaces it or
     the decoder is destroyed)."""
     import numpy as np
-    planes = frame.visible_planes()
+    planes = frame._crop()      # inside vpx_codec_get_frame's span
     itemsize = 1 if frame.bit_depth == 8 else 2
     min_size = sum(int(p.size) * itemsize for p in planes)
     fb = FrameBuffer()

@@ -33,7 +33,15 @@ class DecodedFrame:
         self.ss_y = ss_y
 
     def visible_planes(self):
-        """Planes cropped to display size (Y, U, V)."""
+        """Planes cropped to display size (Y, U, V), in an
+        api.visible_planes span (`utils/spans.py`): reading a frame's
+        planes first fetches them from the device."""
+        with spans.span("api.visible_planes"):
+            return self._crop()
+
+    def _crop(self):
+        """visible_planes without its span (for a caller inside another
+        api.* span)."""
         w, h = self.width, self.height
         cw = (w + self.ss_x) >> self.ss_x
         ch = (h + self.ss_y) >> self.ss_y

@@ -6,6 +6,22 @@ bitstream layer produces — the reconstruction backends are shared.
 The library is built with g++ from the sources beside this file into
 `build/cuda_vp9_torch/libvp9host.so` at the checkout root, at first use,
 and rebuilt when a source is newer than it.
+
+`counters()` reads what the library counts, always on, as totals over
+every parser of the process (steady clock, nanoseconds):
+
+  parse_ns             all of each `vp9h_parse` (`NativeParser.parse`
+                       less its Python wrap of the plan);
+  parse_tiles_ns       its tile section, from the first tile's start to
+                       the join of the tile threads (the merge of the
+                       tiles excluded);
+  parse_tile_busy_ns   the sum over tiles of the parse of each;
+  parse_tile_slots_ns  the tile section's wall time times the workers it
+                       used (1 without tile threads), so busy over slots
+                       is the share of the threads' time spent parsing;
+  pack_ns              all of each `vp9h_pack` (`NativeParser.pack`);
+  pack_fill_ns         its zero-fill of the flat;
+  pack_fill_bytes      the bytes that fill wrote.
 """
 
 from __future__ import annotations
@@ -112,6 +128,11 @@ class _PackIn(ct.Structure):
     ]
 
 
+# vp9h_counters' order (the CT_* enum of vp9host.cpp)
+COUNTERS = ("parse_ns", "parse_tiles_ns", "parse_tile_busy_ns",
+            "parse_tile_slots_ns", "pack_ns", "pack_fill_ns",
+            "pack_fill_bytes")
+
 _COEFF_NAMES = ("tx0s", "tx0", "tx1s", "tx1m", "tx1", "tx2xs",
                 "tx2s", "tx2d", "tx3xs", "tx3s", "tx3m", "tx3d")
 
@@ -159,6 +180,8 @@ def _load():
                                            ct.c_void_p]
         lib.vp9h_packin_size.restype = ct.c_int64
         lib.vp9h_packin_size.argtypes = []
+        lib.vp9h_counters.restype = ct.c_int64
+        lib.vp9h_counters.argtypes = [ct.POINTER(ct.c_int64), ct.c_int64]
         check_packin_layout(lib)
         _lib = lib
     return _lib
@@ -172,6 +195,17 @@ def check_packin_layout(lib) -> int:
         raise RuntimeError(f"PackIn layout mismatch: C++ sizeof {size}, "
                            f"ctypes {ct.sizeof(_PackIn)}")
     return size
+
+
+def counters() -> dict:
+    """The library's counters (module docstring) by name: process totals
+    since it was loaded."""
+    buf = (ct.c_int64 * len(COUNTERS))()
+    n = int(_load().vp9h_counters(buf, len(COUNTERS)))
+    if n != len(COUNTERS):
+        raise RuntimeError(f"vp9h_counters: the library counts {n}, the "
+                           f"binding names {len(COUNTERS)}")
+    return dict(zip(COUNTERS, buf))
 
 
 def compact_pages(flat: np.ndarray, max_pages: int, map_addr: int,

@@ -16,11 +16,38 @@
 #include <vector>
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <thread>
 
 #include "vp9_tables.h"
 
 namespace {
+
+// ------------------------------------------------------------ counters
+
+// Process totals of the host path, summed over every decoding context
+// with relaxed atomics and read by vp9h_counters, in this order (the
+// names in native/__init__.py COUNTERS).
+enum {
+  CT_PARSE_NS,            // all of vp9h_parse
+  CT_PARSE_TILES_NS,      // the tile section: first tile's start to join
+  CT_PARSE_TILE_BUSY_NS,  // the sum over tiles of parse_one_tile
+  CT_PARSE_TILE_SLOTS_NS, // the tile section's wall time x its workers
+  CT_PACK_NS,             // all of vp9h_pack
+  CT_PACK_FILL_NS,        // the zero-fill of the flat
+  CT_PACK_FILL_BYTES,     // the bytes it zero-filled
+  CT_N
+};
+std::atomic<int64_t> g_counters[CT_N];
+
+inline int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+      std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+
+inline void add_ct(int k, int64_t v) {
+  g_counters[k].fetch_add(v, std::memory_order_relaxed);
+}
 
 // ------------------------------------------------------------ constants
 
@@ -739,14 +766,28 @@ void vp9h_set_threads(void* h, int n) {
 
 int vp9h_parse(void* h, const uint8_t* data, int64_t size, PlanOut* out) {
   Decoder* d = (Decoder*)h;
-  return d->parse_frame(data, size, out);
+  int64_t t0 = now_ns();
+  int ok = d->parse_frame(data, size, out);
+  add_ct(CT_PARSE_NS, now_ns() - t0);
+  return ok;
 }
 
 // Pack the most recently parsed frame into the fused-step flat buffer.
 // Returns 0 on success, a PackErr code on (tight-tier) overflow.
 int64_t vp9h_pack(void* h, const Decoder::PackIn* in, int16_t* out) {
   Decoder* d = (Decoder*)h;
-  return d->pack_frame_native(*in, out);
+  int64_t t0 = now_ns();
+  int64_t err = d->pack_frame_native(*in, out);
+  add_ct(CT_PACK_NS, now_ns() - t0);
+  return err;
+}
+
+// The process's counters (the CT_* enum) into out[0 .. n), as many as
+// both hold; returns how many there are.
+int64_t vp9h_counters(int64_t* out, int64_t n) {
+  for (int64_t k = 0; k < n && k < CT_N; k++)
+    out[k] = g_counters[k].load(std::memory_order_relaxed);
+  return CT_N;
 }
 
 // sizeof(PackIn), which the ctypes mirror checks once at load

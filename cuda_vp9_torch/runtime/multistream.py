@@ -40,7 +40,9 @@ Usage:
 A batched round uploads its flats page-compacted, as JAX's page-tier
 branch does, in one copy from pinned memory and one expansion launch
 (`runtime/upload.py`).  Spans (`utils/spans.py`): vp9.pack around each
-stream's pack, vp9.readback around the fetch, and the batched step's own.
+stream's pack, vp9.readback around the fetch (counted as
+`runtime/pipeline.py`'s are), and the batched step's own; api.decode_round
+around `decode_round`, and api.drain around the flush of `drain`.
 
 `validate_against_oracle` reaches the per-stream `TorchRecon` of the
 frames that leave the batch, which holds each against the host oracle;
@@ -65,7 +67,7 @@ from .. import models as M
 from ..decoder.frame import NativeVp9Decoder
 from ..utils import spans
 from . import fused, pack
-from .pipeline import LazyPlanes, TorchRecon, _align
+from .pipeline import LazyPlanes, TorchRecon, _align, fetch_rows
 from .upload import Uploader
 
 
@@ -312,11 +314,12 @@ class BatchedTorchDecoder:
     def decode_round(self, packets):
         """Feed one packet per stream (None: no packet for that stream this
         round) and run ONE batched step for the frames they hold."""
-        for s, p in enumerate(packets):
-            if p is not None:
-                self.decs[s].decode(p)
-                self._out[s].extend(self.decs[s].frames())
-        self._dispatch_round()
+        with spans.span("api.decode_round"):
+            for s, p in enumerate(packets):
+                if p is not None:
+                    self.decs[s].decode(p)
+                    self._out[s].extend(self.decs[s].frames())
+            self._dispatch_round()
 
     def _dispatch_round(self):
         if self._syncs:
@@ -368,7 +371,7 @@ class BatchedTorchDecoder:
             with spans.span("vp9.readback"):
                 lo = self._pending[0]._slot
                 hi = self._pending[-1]._slot
-                rows = self._ring[:, lo:hi + 1].cpu().numpy()
+                rows = fetch_rows(self._ring[:, lo:hi + 1])
                 for lp in self._pending:
                     lp._set_from_ring(rows[lp._stream, lp._slot - lo])
         self._pending = []
@@ -389,7 +392,8 @@ class BatchedTorchDecoder:
 
     def drain(self):
         """Yield (stream, DecodedFrame) for everything decoded so far."""
-        self.flush()
+        with spans.span("api.drain"):
+            self.flush()
         for s in range(self.n):
             for fr in self._out[s]:
                 yield s, fr

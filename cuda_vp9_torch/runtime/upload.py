@@ -33,7 +33,10 @@ goes to the current stream, in order.  The host's flats are untouched:
 the step reads its loop bounds from them.
 
 On a CUDA device the staging buffers are pinned, and a failed pin raises;
-on the CPU they are plain tensors and the copy is a memcpy.
+on the CPU they are plain tensors and the copy is a memcpy.  The host's
+waits for a buffer's event are counted in `staging_wait_ns`, a total over
+every uploader of the process (nanoseconds; 0 on the CPU, which records
+no event).
 
 Not ported: the page-tier ladder and the sticky tier floor
 (`pipeline.py:39-55,204-209`, `multistream.py:446-463`), which manage the
@@ -43,6 +46,7 @@ at 32,767 nonzero pages, and the wire has no zero page and no padding.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -51,6 +55,8 @@ import torch
 from ..native import compact_pages
 from ..ops.cuda.pages import (PAGE, PAGE_BYTES, TABLE_BYTES, Flat, Table,
                               expand_pages)
+
+staging_wait_ns = 0     # host time in the staging buffers' event waits
 
 
 def _align16(n: int) -> int:
@@ -91,10 +97,13 @@ class Uploader:
     def _staging(self, nbytes: int):
         """(turn, numpy view) of the next staging buffer, at least nbytes
         long, once its last copy has completed."""
+        global staging_wait_ns
         turn = self._turn
         self._turn ^= 1
         if self._copied[turn] is not None:
+            t0 = time.perf_counter_ns()
             self._copied[turn].synchronize()
+            staging_wait_ns += time.perf_counter_ns() - t0
         host = self._host[turn]
         if host is None or host.numel() < nbytes:
             host = self._host[turn] = torch.empty(

@@ -7,15 +7,16 @@ Usage:
 
 Prints the host's core count (os.cpu_count()), decodes the stream once
 to warm up (kernel build, allocator, cached steps), then:
-  * decodes it again with a stage clock in place of every span of the
-    decode (utils/spans.py): the host's vp9.parse (decoder/frame.py),
-    vp9.pack and vp9.readback (runtime/pipeline.py, multistream.py), and
-    the step's vp9.compact, vp9.upload, vp9.expand, vp9.residual,
+  * decodes it again with a stage clock in place of every vp9.* span of
+    the decode (utils/spans.py; its api.* spans are left out): the host's
+    vp9.parse (decoder/frame.py), vp9.pack and vp9.readback
+    (runtime/pipeline.py, multistream.py), and the step's vp9.compact, vp9.upload, vp9.expand, vp9.residual,
     vp9.inter, vp9.intra, vp9.loopfilter and vp9.refresh
     (runtime/fused.py): the device is synchronised at each span edge,
     and the host wall time inside each span is summed.  Prints the frame
     rate of this pass, each span's milliseconds and share, what no span
-    covers ("outside spans"), the upload's flats, flats sent dense and
+    covers ("outside spans"), the host path's counters over the pass
+    (`host_counters`), the upload's flats, flats sent dense and
     bytes (dense and sent), and the kernels' counters over the pass: the
     launches of the page expansion (with the pages they wrote), of the
     loop filters (lf_frame, lf_chroma_tiles), of the residual kernel (with
@@ -112,15 +113,31 @@ def _decode_batched(path, device, limit, streams):
     return sum(md5s, []), dec
 
 
+def host_counters() -> dict:
+    """The host path's process totals: the native parse and pack phases
+    (`native.counters()`), the staging buffers' waits
+    (`runtime/upload.py`) and the read-back's bytes and widening
+    (`runtime/pipeline.py`)."""
+    from ..native import counters
+    from ..runtime import pipeline, upload
+    return {**counters(), "staging_wait_ns": upload.staging_wait_ns,
+            "readback_bytes": pipeline.readback_bytes,
+            "readback_widen_ns": pipeline.readback_widen_ns}
+
+
 def stage_clock(path, device, limit, streams=1, threads=1, out=None):
     """(frames, wall seconds, {span: seconds}) of one decode with the
-    device synchronised at every span edge; `out`, a dict, receives the
-    recon or decoder under "recon"."""
+    device synchronised at every vp9.* span's edge; `out`, a dict,
+    receives the recon or decoder under "recon".  The api.* spans, which
+    enclose vp9.* spans, are left out: neither clocked nor synchronised."""
     cuda = torch.device(device).type == "cuda"
     spent = defaultdict(float)
 
     @contextmanager
     def clock(name):
+        if not name.startswith("vp9."):
+            yield
+            return
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -247,8 +264,10 @@ def main(argv=None):
     for k in _KERNELS:
         k.reset_counts()
     got = {}
+    host0 = host_counters()
     n, wall, spent = stage_clock(args.input, args.device, args.frames,
                                  args.streams, args.threads, got)
+    host = {k: v - host0[k] for k, v in host_counters().items()}
     print(f"{args.input}: {n} frames, {wall:.3f} s with a stage clock "
           f"({n / wall:.2f} fps), device {args.device}, {args.threads} "
           "parse threads")
@@ -257,6 +276,16 @@ def main(argv=None):
     rest = wall - sum(spent.values())
     print(f"  {'outside spans':16s} {rest * 1e3:10.1f} ms  "
           f"{rest / wall:6.1%}")
+    ms = {k: host[k] / 1e6 for k in host if k.endswith("_ns")}
+    slots = host["parse_tile_slots_ns"]
+    print(f"  host: parse {ms['parse_ns']:.1f} ms, its tiles "
+          f"{ms['parse_tiles_ns']:.1f} (threads busy "
+          f"{host['parse_tile_busy_ns'] / max(slots, 1):.1%}); pack "
+          f"{ms['pack_ns']:.1f} ms, its zero-fill {ms['pack_fill_ns']:.1f} "
+          f"({host['pack_fill_bytes']} bytes); staging waits "
+          f"{ms['staging_wait_ns']:.1f} ms; read-back "
+          f"{host['readback_bytes']} bytes, widened in "
+          f"{ms['readback_widen_ns']:.1f} ms")
     up = got["recon"].uploader
     print(f"  upload: {up.frames} flats, {up.dense_frames} sent dense, "
           f"{up.flat_bytes} bytes dense, {up.sent_bytes} sent")
