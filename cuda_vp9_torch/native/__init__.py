@@ -20,8 +20,12 @@ every parser of the process (steady clock, nanoseconds):
                        used (1 without tile threads), so busy over slots
                        is the share of the threads' time spent parsing;
   pack_ns              all of each `vp9h_pack` (`NativeParser.pack`);
-  pack_fill_ns         its zero-fill of the flat;
-  pack_fill_bytes      the bytes that fill wrote.
+  pack_fill_ns         its zero-fill of the flat: the whole of a fresh
+                       flat, the pages of a `RecordedFlat`'s record;
+  pack_fill_bytes      the bytes that fill wrote;
+  compact_scan_bytes   the flat bytes `compact_pages` read: every page of
+                       a flat without a record, the recorded pages of one
+                       with a record.
 """
 
 from __future__ import annotations
@@ -131,7 +135,9 @@ class _PackIn(ct.Structure):
 # vp9h_counters' order (the CT_* enum of vp9host.cpp)
 COUNTERS = ("parse_ns", "parse_tiles_ns", "parse_tile_busy_ns",
             "parse_tile_slots_ns", "pack_ns", "pack_fill_ns",
-            "pack_fill_bytes")
+            "pack_fill_bytes", "compact_scan_bytes")
+
+PAGE = 512      # int16 a page of the flat (1 KB)
 
 _COEFF_NAMES = ("tx0s", "tx0", "tx1s", "tx1m", "tx1", "tx2xs",
                 "tx2s", "tx2d", "tx3xs", "tx3s", "tx3m", "tx3d")
@@ -173,11 +179,11 @@ def _load():
                                    ct.POINTER(_PlanOut)]
         lib.vp9h_pack.restype = ct.c_int64
         lib.vp9h_pack.argtypes = [ct.c_void_p, ct.POINTER(_PackIn),
-                                  ct.POINTER(ct.c_int16)]
+                                  ct.c_void_p, ct.c_void_p]
         lib.vp9h_compact_pages.restype = ct.c_int64
         lib.vp9h_compact_pages.argtypes = [ct.c_void_p, ct.c_int64,
                                            ct.c_int64, ct.c_void_p,
-                                           ct.c_void_p]
+                                           ct.c_void_p, ct.c_void_p]
         lib.vp9h_packin_size.restype = ct.c_int64
         lib.vp9h_packin_size.argtypes = []
         lib.vp9h_counters.restype = ct.c_int64
@@ -209,19 +215,52 @@ def counters() -> dict:
 
 
 def compact_pages(flat: np.ndarray, max_pages: int, map_addr: int,
-                  pages_addr: int) -> int:
+                  pages_addr: int, written=None) -> int:
     """Page compaction of a packed flat (int16, whole 512-int16 pages) in
     C++, in one pass, into caller memory: the int32 page map at map_addr
     (0: an all-zero page; i: the i-th nonzero page), the nonzero pages at
     pages_addr.  Returns their count, or -1 when more than max_pages are
     nonzero (the flat then ships dense).  Counterpart of
-    TpuReconFused._compact without the tier: no zero page, no padding."""
+    TpuReconFused._compact without the tier: no zero page, no padding.
+    `written`, the flat's page record (`RecordedFlat.written`), or None:
+    with it only the recorded pages are read, with the same result."""
     if flat.dtype != np.int16 or not flat.flags.c_contiguous \
-            or flat.size % 512:
+            or flat.size % PAGE:
         raise ValueError("compact_pages: flat must be contiguous int16 "
                          "whole pages")
-    return int(_load().vp9h_compact_pages(flat.ctypes.data, flat.size // 512,
-                                          max_pages, map_addr, pages_addr))
+    n_pages = flat.size // PAGE
+    if written is not None and (written.dtype != np.uint8
+                                or written.shape != (n_pages,)
+                                or not written.flags.c_contiguous):
+        raise ValueError("compact_pages: written must be one uint8 a page")
+    return int(_load().vp9h_compact_pages(
+        flat.ctypes.data, n_pages, max_pages, map_addr, pages_addr,
+        None if written is None else written.ctypes.data))
+
+
+class RecordedFlat(np.ndarray):
+    """An int16 flat of whole pages that native packs are made into one
+    after another (`NativeParser.pack(..., out=)`), with `written`, its
+    page record: one uint8 a 1 KB page, 1 where the last pack wrote.
+
+    The record holds every nonzero page (a superset of them): the packer
+    records a page before it writes there, the next pack zeroes only the
+    recorded pages, and `compact_pages` reads only those.  A write to the
+    flat by anyone else must stay inside the recorded pages (the misc
+    segment, which every pack records, is such a place).  Views and copies
+    carry no record (`written` None) and are compacted page by page."""
+
+    @classmethod
+    def zeros(cls, n: int) -> "RecordedFlat":
+        """A zero flat of n int16 rounded up to whole pages, with an
+        empty record."""
+        n_pages = -(-n // PAGE)
+        flat = np.zeros(n_pages * PAGE, np.int16).view(cls)
+        flat.written = np.zeros(n_pages, np.uint8)
+        return flat
+
+    def __array_finalize__(self, obj):
+        self.written = None
 
 
 def _wrap(ptr, shape, dtype):
@@ -296,8 +335,8 @@ class NativeParser:
         if pi is None:
             from ..runtime.lfmeta import K as LF_K
             pi = _PackIn()
-            # padded to a whole page: C++ zero-fills the entire buffer
-            pi.total_len = ((layout.size + 511) // 512) * 512
+            # padded to whole pages: the flat's length, which C++ fills
+            pi.total_len = -(-layout.size // PAGE) * PAGE
             pi.lossless = int(lossless)
             pi.ha = ((mi_rows + 7) & ~7) * 8
             pi.lf_k = LF_K
@@ -341,12 +380,16 @@ class NativeParser:
             self._packin_cache[key] = (layout, pi)
         return pi
 
-    def pack(self, plan, refs, caps, layout, ring_slot=0, pool_ha=None):
-        """Pack the MOST RECENTLY PARSED frame (must be `plan`) into a
-        fresh flat int16 buffer entirely in C++ (mirrors
-        runtime/pack.pack_frame byte-for-byte, including the scaled-
-        reference mcs class).  Returns None on tier overflow (caller
-        falls back to the host oracle)."""
+    def pack(self, plan, refs, caps, layout, ring_slot=0, pool_ha=None,
+             out=None):
+        """Pack the MOST RECENTLY PARSED frame (must be `plan`) entirely
+        in C++ (mirrors runtime/pack.pack_frame byte-for-byte, including
+        the scaled-reference mcs class) into `out`, a `RecordedFlat` of
+        the layout's padded size, whose last pack's pages are zeroed first
+        and whose record then holds this pack's, or, without `out`, into a
+        fresh flat int16 buffer zero-filled whole.  Returns the flat, or
+        None on tier overflow (caller falls back to the host oracle; `out`
+        keeps the partial writes, recorded)."""
         assert plan is self._last_plan, \
             "native pack must run on the parser's live state"
         hdr = plan.hdr
@@ -368,10 +411,16 @@ class NativeParser:
                     sy = hdr.subsampling_y if p else 0
                     pi.crop[k - 1][p][0] = (rb.width + sx) >> sx
                     pi.crop[k - 1][p][1] = (rb.height + sy) >> sy
-        PAGE = 512
-        buf = np.empty(((layout.size + PAGE - 1) // PAGE) * PAGE, np.int16)
-        err = self._lib.vp9h_pack(
-            self._h, ct.byref(pi), buf.ctypes.data_as(ct.POINTER(ct.c_int16)))
+        if out is None:
+            buf, written = np.empty(pi.total_len, np.int16), None
+        elif not isinstance(out, RecordedFlat) or out.written is None \
+                or out.shape != (pi.total_len,):
+            raise ValueError("pack: out must be a RecordedFlat of the "
+                             "layout's padded size")
+        else:
+            buf, written = out, out.written.ctypes.data
+        err = self._lib.vp9h_pack(self._h, ct.byref(pi), buf.ctypes.data,
+                                  written)
         if err:
             from ..runtime import pack as _p
             _p.last_overflow = ("native", int(err), 0)

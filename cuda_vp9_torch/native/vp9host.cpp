@@ -36,6 +36,7 @@ enum {
   CT_PACK_NS,             // all of vp9h_pack
   CT_PACK_FILL_NS,        // the zero-fill of the flat
   CT_PACK_FILL_BYTES,     // the bytes it zero-filled
+  CT_COMPACT_SCAN_BYTES,  // the flat bytes vp9h_compact_pages read
   CT_N
 };
 std::atomic<int64_t> g_counters[CT_N];
@@ -47,6 +48,27 @@ inline int64_t now_ns() {
 
 inline void add_ct(int k, int64_t v) {
   g_counters[k].fetch_add(v, std::memory_order_relaxed);
+}
+
+// ------------------------------------------------------------ page record
+
+// A flat is whole pages of PAGE int16 (1 KB).  A flat that is packed into
+// again and again carries its record: one byte a page, nonzero where the
+// last pack wrote.  next_marked(w, n, p) is the first marked page at or
+// after p (n if none), eight marks a word.
+constexpr int64_t PAGE = 512;
+
+inline int64_t next_marked(const uint8_t* w, int64_t n, int64_t p) {
+  while (p < n) {
+    if ((p & 7) == 0 && p + 8 <= n) {
+      uint64_t v;
+      memcpy(&v, w + p, 8);
+      if (!v) { p += 8; continue; }
+    }
+    if (w[p]) return p;
+    p++;
+  }
+  return n;
 }
 
 // ------------------------------------------------------------ constants
@@ -774,10 +796,13 @@ int vp9h_parse(void* h, const uint8_t* data, int64_t size, PlanOut* out) {
 
 // Pack the most recently parsed frame into the fused-step flat buffer.
 // Returns 0 on success, a PackErr code on (tight-tier) overflow.
-int64_t vp9h_pack(void* h, const Decoder::PackIn* in, int16_t* out) {
+// written: the flat's page record (see next_marked), or null for a fresh
+// flat, which is zero-filled whole.
+int64_t vp9h_pack(void* h, const Decoder::PackIn* in, int16_t* out,
+                  uint8_t* written) {
   Decoder* d = (Decoder*)h;
   int64_t t0 = now_ns();
-  int64_t err = d->pack_frame_native(*in, out);
+  int64_t err = d->pack_frame_native(*in, out, written);
   add_ct(CT_PACK_NS, now_ns() - t0);
   return err;
 }
@@ -799,22 +824,30 @@ int64_t vp9h_packin_size() { return (int64_t)sizeof(Decoder::PackIn); }
 // to `pages`, with no zero page and no padding.  Returns the number of
 // nonzero pages, or -1 as soon as more than max_pages are nonzero (the
 // caller then ships the flat dense; `map` and `pages` hold partial data).
-// The device rebuilds the flat from it with one gather of 1 KB rows
-// (cuda_vp9_torch/csrc/pages.cu).
+// With the flat's page record `written` (null: none) only the recorded
+// pages are read, the others mapped to 0 unread: the record is a superset
+// of the nonzero pages, so the result is the same.  The pages read count
+// in CT_COMPACT_SCAN_BYTES.  The device rebuilds the flat from it with one
+// gather of 1 KB rows (cuda_vp9_torch/csrc/pages.cu).
 int64_t vp9h_compact_pages(const int16_t* flat, int64_t n_pages,
-                           int64_t max_pages, int32_t* map, int16_t* pages) {
-  const int64_t PAGE = 512;
-  int64_t nz = 0;
-  for (int64_t p = 0; p < n_pages; p++) {
+                           int64_t max_pages, int32_t* map, int16_t* pages,
+                           const uint8_t* written) {
+  int64_t nz = 0, read = 0;
+  if (written) memset(map, 0, (size_t)n_pages * sizeof(int32_t));
+  for (int64_t p = written ? next_marked(written, n_pages, 0) : 0;
+       p < n_pages;
+       p = written ? next_marked(written, n_pages, p + 1) : p + 1) {
+    read++;
     const uint64_t* w = (const uint64_t*)(flat + p * PAGE);
     bool any = false;
     for (int64_t i = 0; i < PAGE / 4; i++)
       if (w[i]) { any = true; break; }
     if (!any) { map[p] = 0; continue; }
-    if (nz == max_pages) return -1;
+    if (nz == max_pages) { nz = -1; break; }
     memcpy(pages + nz * PAGE, flat + p * PAGE, PAGE * sizeof(int16_t));
     map[p] = (int32_t)++nz;
   }
+  add_ct(CT_COMPACT_SCAN_BYTES, read * PAGE * (int64_t)sizeof(int16_t));
   return nz;
 }
 

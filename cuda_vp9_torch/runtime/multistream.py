@@ -64,6 +64,7 @@ import torch
 
 from .. import convert
 from .. import models as M
+from .. import native
 from ..decoder.frame import NativeVp9Decoder
 from ..utils import spans
 from . import fused, pack
@@ -166,6 +167,12 @@ class BatchedTorchDecoder:
     a frame outside the batch refreshed is re-uploaded from the host
     RefBuffer before the stream's next batched frame reads it (one stacked
     copy per round).
+    Each stream packs into a `native.RecordedFlat` of its own per tier,
+    reused frame after frame: the round holds the stream's flat until
+    `_dispatch_round`, whose step reads it (misc, upload) and returns, and
+    the stream packs again only once its round is dispatched (`recon`
+    dispatches first on a superframe's second frame).  The wide copy of a
+    tight flat is made fresh, with the record carried over.
     Output rows are fetched as TorchRecon fetches them: one device-to-host
     copy of the pending rows of every stream, when a frame is first read,
     at the ring's wrap, or at drain.  With defer_output the rows stay on
@@ -195,6 +202,7 @@ class BatchedTorchDecoder:
         self._ring_slot = 0
         self._slot_dirty = [[True] * 8 for _ in range(n_streams)]
         self._round = [None] * n_streams   # (flat, tier, planes)
+        self._flats = [[None] * 3 for _ in range(n_streams)]  # per tier
         self._round_full = False           # the round is at the full tier
         self._syncs = []                   # (stream, slot, canvas)
         self._pending = []                 # dispatched, not fetched
@@ -259,8 +267,12 @@ class BatchedTorchDecoder:
         with spans.span("vp9.pack"):
             for tier in range(3 if hdr.frame_is_intra_only else 2):
                 _, caps, layout = self._tiers[tier]
+                if self._flats[s][tier] is None:
+                    self._flats[s][tier] = native.RecordedFlat.zeros(
+                        layout.size)
                 flat = plan.native_parser.pack(
-                    plan, refs, caps, layout, ring_slot=self._ring_slot)
+                    plan, refs, caps, layout, ring_slot=self._ring_slot,
+                    out=self._flats[s][tier])
                 if flat is not None:
                     break
         if flat is None:
@@ -352,13 +364,21 @@ class BatchedTorchDecoder:
     def _remap_wide(self, flat):
         """A tight-tier flat in the wide layout: a prefix copy per segment
         (capacities only grow; fill counts and misc stay valid), so
-        escalation never re-packs a stream."""
+        escalation never re-packs a stream.  Each segment is copied up to
+        the end of its last recorded page, and the wide flat records the
+        pages that copy wrote."""
         (_, _, tight), (_, _, wide), _ = self._tiers
-        out = np.zeros(fused.cdiv(wide.size, pack.PAGE) * pack.PAGE,
-                       np.int16)
-        for name in tight.segs:
-            src = tight.view(flat, name)
-            wide.view(out, name)[:src.shape[0]] = src
+        P = pack.PAGE
+        out = native.RecordedFlat.zeros(wide.size)
+        for name, (off, shape) in tight.segs.items():
+            end = off + int(np.prod(shape))
+            pages = np.flatnonzero(flat.written[off // P:-(-end // P)])
+            if not len(pages):
+                continue
+            n = min(end, (off // P + int(pages[-1]) + 1) * P) - off
+            woff = wide.segs[name][0]
+            out[woff:woff + n] = flat[off:off + n]
+            out.written[woff // P:(woff + n - 1) // P + 1] = 1
         return out
 
     # ------------------------------------------------------------ output

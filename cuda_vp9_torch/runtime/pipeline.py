@@ -3,7 +3,11 @@
 Counterpart of `cuda_vp9_tpu/runtime/pipeline.py` `TpuReconFused`.  Per
 frame: pack ONE flat int16 buffer on the host (the C++ packer, or
 `runtime/pack.pack_frame` when the plan has no native parser), then run
-the frame step of `runtime/fused.py` on `device`.  The reference pool
+the frame step of `runtime/fused.py` on `device`.  The C++ packer packs
+into a `native.RecordedFlat` kept per layout and reused frame after
+frame: the step reads the flat (its misc row, its upload) only before it
+returns, so the next frame's pack finds it free; the flat's record of
+written pages bounds both the next pack's zero-fill and the compaction.  The reference pool
 [8, 3, pha, pwa] int32 and an output ring of RING rows (uint8, or int16
 above 8 bits) stay on the device; a frame's planes come back as
 LazyPlanes (uint16 numpy), fetched with all other pending rows in one
@@ -57,6 +61,7 @@ import torch
 
 from .. import convert
 from .. import models as M
+from .. import native
 from ..decoder import constants as C
 from ..ops.ref import recon as ref_recon
 from ..ops.ref.inter import ScaleFactors
@@ -143,6 +148,7 @@ class TorchRecon:
                                        device=self.device)
         self.uploader = Uploader(self.device)
         self._steps = {}
+        self._flats = {}          # layout: the C++ packer's flat
         self._pool = None
         self._ring = None
         self._geom = None            # pool canvas (pha, pwa)
@@ -162,6 +168,15 @@ class TorchRecon:
             self._steps[key] = fused.get_frame_step(
                 mi_rows, mi_cols, tier, lossless, bd, ss, pool_ha=pool_ha)
         return self._steps[key]
+
+    def _flat(self, layout):
+        """The C++ packer's flat for `layout`, reused frame after frame
+        (one step reads it, and returns, before the next pack)."""
+        flat = self._flats.get(layout)
+        if flat is None:
+            flat = self._flats[layout] = native.RecordedFlat.zeros(
+                layout.size)
+        return flat
 
     def flush(self):
         """Fetch every pending frame's ring row in one device-to-host
@@ -285,7 +300,8 @@ class TorchRecon:
             with spans.span("vp9.pack"):
                 if nparser is not None and ss == (1, 1):
                     flat = nparser.pack(plan, refs, caps, layout,
-                                        ring_slot=slot, pool_ha=pool_ha)
+                                        ring_slot=slot, pool_ha=pool_ha,
+                                        out=self._flat(layout))
                 else:
                     flat = pack.pack_frame(plan, refs, caps, layout,
                                            pool_ha=pha)

@@ -15,8 +15,9 @@ each a span of the step (`runtime/fused.py`):
           staging buffer: the table of `ops/cuda/pages.Flat`s, `aux`,
           then per flat its int32 page map and its nonzero pages
           (`native.compact_pages`, one pass, straight into the buffer
-          through its numpy view), or the flat itself where the
-          compacted form would not be smaller (`dense_frames`);
+          through its numpy view; a `native.RecordedFlat` has only its
+          recorded pages read), or the flat itself where the compacted
+          form would not be smaller (`dense_frames`);
   send    (vp9.upload) one non_blocking host-to-device copy of the bytes
           used into a device buffer;
   expand  (vp9.expand) one `pages.expand_pages` call, the kernel on a
@@ -134,7 +135,8 @@ class Uploader:
         base, cur, table = buf.ctypes.data, head, []
         for f in flats:
             n = compact_pages(f, max_pages, base + cur,
-                              base + cur + map_bytes)
+                              base + cur + map_bytes,
+                              getattr(f, "written", None))
             if n < 0:
                 buf[cur:cur + K * PAGE_BYTES] = f.view(np.uint8)
                 table.append(Flat(-1, cur, K))

@@ -282,7 +282,8 @@ def main(argv=None):
           f"{ms['parse_tiles_ns']:.1f} (threads busy "
           f"{host['parse_tile_busy_ns'] / max(slots, 1):.1%}); pack "
           f"{ms['pack_ns']:.1f} ms, its zero-fill {ms['pack_fill_ns']:.1f} "
-          f"({host['pack_fill_bytes']} bytes); staging waits "
+          f"({host['pack_fill_bytes']} bytes); compaction read "
+          f"{host['compact_scan_bytes']} bytes; staging waits "
           f"{ms['staging_wait_ns']:.1f} ms; read-back "
           f"{host['readback_bytes']} bytes, widened in "
           f"{ms['readback_widen_ns']:.1f} ms")

@@ -19,6 +19,16 @@ page expansion (ops/cuda/pages.py, csrc/pages.cu).
     step on 2 x in01's first 2 rounds;
   * parse threads: tl03's first 3 flats packed with 1 and with 4 tile
     threads are byte-equal (parse and pack only);
+  * reused flats (`native.RecordedFlat`): the 4:2:0 fixtures above, twice
+    over, packed as the batched decoder packs them (tight, else wide,
+    else full) into one flat per tier, equal frame by frame the same
+    frames packed into fresh flats, through tight overflows retried at
+    wide, keyframes after inter frames and layouts taking turns; each
+    record holds its flat's nonzero pages; compaction by the record
+    equals the full scan (map, pages, count, dense fallback, the bytes
+    `Uploader.stage` writes), and so it does on the wide copy of every
+    tight flat (`BatchedTorchDecoder._remap_wide`), which equals the
+    whole-segment copy;
   * `vpxdec -t 2 --summary` prints the golden MD5s and a summary line;
     `profile_decode.stage_clock` reads every host span of a decode;
   * a CUDA tensor never takes the twin: with the loader and the C call
@@ -46,10 +56,12 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_vp9_torch import native
 from cuda_vp9_torch.containers import IvfReader
 from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
 from cuda_vp9_torch.ops.cuda import _build
 from cuda_vp9_torch.ops.cuda import pages as K
+from cuda_vp9_torch.runtime import pack as P
 from cuda_vp9_torch.runtime import upload as U
 from cuda_vp9_torch.runtime.pipeline import TorchRecon
 
@@ -71,17 +83,28 @@ def _packets(name, n=None):
         return [d for d, _ in r][:n]
 
 
+def _kept(flat):
+    """A copy of a flat that its packer will pack into again, with a copy
+    of its page record where it has one (`native.RecordedFlat`)."""
+    kept = flat.copy()
+    if getattr(flat, "written", None) is not None:
+        kept.written = flat.written.copy()
+    return kept
+
+
 def _uploaded_flats(name, n=None, threads=1):
     """The host flats TorchRecon("cpu") uploads for the first n packets
     of a fixture (its tiers, its packers), with the step replaced by a
-    recorder: parse and pack only, the frames read back as zeros."""
+    recorder: parse and pack only, the frames read back as zeros.  The
+    recon packs into the same flat frame after frame, so the recorder
+    keeps copies, records and all."""
     recon, flats = TorchRecon("cpu"), []
     real = recon._step
 
     def recording_step(*key):
         _, caps, layout = real(*key)
         return (lambda pool, ring, kernels, flat, uploader=None:
-                flats.append(flat)), caps, layout
+                flats.append(_kept(flat))), caps, layout
 
     recon._step = recording_step
     dec = NativeVp9Decoder(recon_fn=recon, threads=threads)
@@ -251,6 +274,167 @@ def test_parse_threads_pack_the_same_flats():
     assert len(one) == len(four) == 3
     for a, b in zip(one, four):
         assert np.array_equal(a, b)
+
+
+# the 4:2:0 fixtures of ROUNDTRIP (the C++ packer's), each decoded twice
+# over, so that a keyframe follows inter frames
+RECORDED = [(name, n) for name, n in ROUNDTRIP if "_444" not in name]
+TIERS = ("tight", "wide", "full")
+
+
+class _Packs:
+    """recon_fn of a NativeVp9Decoder that packs each frame as
+    BatchedTorchDecoder does, tight, else wide, else full (intra-only), into
+    one `native.RecordedFlat` per tier, and into a fresh flat beside it; it
+    holds each reused flat against the fresh one and calls check(flat) on
+    it.  `log` gets (intra-only, the tiers that overflowed, the tier
+    packed or None); the planes are zeros."""
+
+    def __init__(self, check):
+        self.check, self.log, self._tiers, self.flats = check, [], {}, {}
+
+    def __call__(self, plan, refs):
+        h = plan.hdr
+        lossless, overflowed, used = bool(h.lossless), [], None
+        for tier in TIERS[:3 if h.frame_is_intra_only else 2]:
+            key = (tier, h.mi_rows, h.mi_cols, lossless)
+            if key not in self._tiers:
+                caps = P.compute_caps(h.mi_rows, h.mi_cols, tier, lossless)
+                if tier != "full":      # fused.get_batched_step's tiers
+                    caps["intra_chunk"] = P.CHUNK_INTRA
+                layout = P.build_layout(caps, h.mi_rows, h.mi_cols, lossless,
+                                        h.bit_depth)
+                self._tiers[key] = (caps, layout)
+                self.flats[key] = native.RecordedFlat.zeros(layout.size)
+            caps, layout = self._tiers[key]
+            parser = plan.native_parser
+            fresh = parser.pack(plan, refs, caps, layout)
+            got = parser.pack(plan, refs, caps, layout, out=self.flats[key])
+            assert (got is None) == (fresh is None), key
+            if got is None:
+                overflowed.append(tier)
+                continue
+            assert got is self.flats[key] and np.array_equal(got, fresh)
+            self.check(got)
+            used = tier
+            break
+        self.log.append((h.frame_is_intra_only, overflowed, used))
+        ha, wa = ((h.mi_rows + 7) & ~7) * 8, ((h.mi_cols + 7) & ~7) * 8
+        return [np.zeros((ha, wa), np.uint16)] + [
+            np.zeros((ha >> 1, wa >> 1), np.uint16)] * 2
+
+
+def _pack_twice_over(name, n, check):
+    """The log of _Packs over a fixture's first n packets, twice."""
+    packs = _Packs(check)
+    dec = NativeVp9Decoder(recon_fn=packs)
+    for p in _packets(name, n) * 2:
+        dec.decode(p)
+    return packs
+
+
+def _covers(flat):
+    """Every nonzero page of a recorded flat is in its record."""
+    nz = flat.reshape(-1, PAGE).any(axis=1)
+    assert not (nz & (flat.written == 0)).any()
+
+
+@pytest.mark.parametrize("name,n", RECORDED)
+def test_reused_flats_pack_as_fresh_ones(name, n):
+    """Frame after frame, the flat packed into a reused buffer equals the
+    frame packed into a fresh one, and its record holds its nonzero pages:
+    across a tight overflow retried at wide (its partial writes zeroed at
+    the next tight pack), a keyframe packed into the buffer of inter
+    frames, and the tight and wide layouts taking turns on one parser."""
+    packs = _pack_twice_over(name, n, _covers)
+    log = packs.log
+    assert len(log) >= 2 * len(_packets(name, n))
+    retried = [i for i, (_, over, used) in enumerate(log)
+               if "tight" in over and used == "wide"]
+    if name == "in01_176x144":
+        # its keyframes overflow tight; its inter frames fit it
+        assert retried and any(used == "tight" for _, _, used in
+                               log[retried[0] + 1:])
+        assert any(intra and log[i - 1][2] == "tight" and not log[i - 1][0]
+                   for i, (intra, _, _) in enumerate(log) if i)
+        assert {used for _, _, used in log} >= {"tight", "wide"}
+
+
+def _compacted(flat, max_pages, written):
+    """(count, map, the count's pages) of compact_pages into buffers that
+    start as garbage."""
+    k = flat.size // PAGE
+    g = np.full(k, -7, np.int32)
+    pages = np.full((k, PAGE), -7, np.int16)
+    n = native.compact_pages(flat, max_pages, g.ctypes.data,
+                             pages.ctypes.data, written)
+    return n, g, pages[:max(n, 0)]
+
+
+def _compaction_by_record_equals_full_scan(flat):
+    nz = int(flat.reshape(-1, PAGE).any(axis=1).sum())
+    k = flat.size // PAGE
+    for max_pages in (k, nz, max(nz - 1, 0)):
+        n, g, pages = _compacted(flat, max_pages, flat.written)
+        n0, g0, pages0 = _compacted(flat, max_pages, None)
+        assert n == n0 == (nz if nz <= max_pages else -1)
+        if n >= 0:
+            assert np.array_equal(g, g0) and np.array_equal(pages, pages0)
+    kept = _kept(flat)
+    kept.written = None
+    assert _staged(flat) == _staged(kept)
+
+
+def _staged(flat):
+    """(bytes used, table, the bytes of the table, aux, map and pages: the
+    gaps that align them are left as they were) of `Uploader.stage` on
+    the flat with an aux."""
+    up = U.Uploader("cpu")
+    st = up.stage([flat], np.arange(3, dtype=np.int16))
+    b, k = up._host[st.turn].numpy(), flat.size // PAGE
+    f, = st.flats
+    parts = [b[:K.TABLE_BYTES + 6]]
+    if f.map < 0:
+        parts.append(b[f.pages:f.pages + k * K.PAGE_BYTES])
+    else:
+        parts += [b[f.map:f.map + 4 * k],
+                  b[f.pages:f.pages + f.n * K.PAGE_BYTES]]
+    return st.nbytes, list(st.flats), [x.tobytes() for x in parts]
+
+
+@pytest.mark.parametrize("name,n", RECORDED)
+def test_compaction_by_record_equals_full_scan(name, n):
+    """On every reused flat of the frames above, compact_pages with the
+    record gives the full scan's count, map and pages, and its dense
+    fallback at the same max_pages; `Uploader.stage` writes the same bytes
+    for the flat and for a copy without a record."""
+    _pack_twice_over(name, n, _compaction_by_record_equals_full_scan)
+
+
+def test_wide_copy_of_a_tight_flat_keeps_its_record():
+    """`BatchedTorchDecoder._remap_wide` on every tight flat of in01 (twice
+    over): the wide flat equals the whole tight segments copied into a
+    zero wide flat, its record holds its nonzero pages, and compaction by
+    the record equals the full scan."""
+    from cuda_vp9_torch.runtime.multistream import BatchedTorchDecoder
+    kept = []
+    packs = _pack_twice_over("in01_176x144", None,
+                             lambda f: kept.append(_kept(f)))
+    geom = next(k[1:] for k in packs._tiers if k[0] == "tight")
+    tight, wide = (packs._tiers[(t,) + geom][1] for t in ("tight", "wide"))
+    bd = BatchedTorchDecoder(1, "cpu")
+    bd._tiers = [(None, None, tight), (None, None, wide), None]
+    flats = [f for f in kept if f.size == -(-tight.size // PAGE) * PAGE]
+    assert len(flats) >= 10
+    for flat in flats:
+        got = bd._remap_wide(flat)
+        want = np.zeros_like(got.view(np.ndarray))
+        for name in tight.segs:
+            src = tight.view(flat, name)
+            wide.view(want, name)[:src.shape[0]] = src
+        assert np.array_equal(got, want)
+        _covers(got)
+        _compaction_by_record_equals_full_scan(got)
 
 
 def test_vpxdec_threads_and_summary(capsys):

@@ -5,7 +5,12 @@
     threads, and hold their order: the tile section within the parse,
     the tiles' busy time within the threads' slots (two workers: the
     slots are twice the section), the zero-fill within the pack; the
-    fill's bytes are the flat's.
+    fill's bytes are the fresh flat's, and so are the bytes its compaction
+    reads.
+  * Into a reused flat (`native.RecordedFlat`), from the second frame on,
+    the fill zeroes only the last pack's recorded pages, fewer bytes than
+    the flat's, and the compaction reads the recorded pages: no more than
+    the flat, no fewer than its nonzero pages.
   * The read-back's bytes (`runtime/pipeline.readback_bytes`) are the
     ring rows fetched, rows times row bytes, by a `TorchRecon` and by a
     2-stream `BatchedTorchDecoder` (every stream's row of each fetched
@@ -20,6 +25,7 @@
 import time
 from contextlib import contextmanager
 
+import numpy as np
 import pytest
 
 from conftest import FIXTURES
@@ -35,6 +41,7 @@ def _packets(name, n):
 
 def test_native_counters_advance_in_order():
     from cuda_vp9_torch.runtime import pack
+    from cuda_vp9_torch.runtime.upload import Uploader
     parser = native.NativeParser(threads=2)
     c0 = native.counters()
     flats = []
@@ -47,6 +54,7 @@ def test_native_counters_advance_in_order():
             layout = pack.build_layout(caps, h.mi_rows, h.mi_cols, False,
                                        h.bit_depth)
             flats.append(parser.pack(plan, {}, caps, layout))
+    Uploader("cpu").stage(flats)
     d = {k: v - c0[k] for k, v in native.counters().items()}
     assert set(d) == set(native.COUNTERS)
     assert all(v > 0 for v in d.values()), d
@@ -55,6 +63,47 @@ def test_native_counters_advance_in_order():
     assert d["parse_tile_slots_ns"] == 2 * d["parse_tiles_ns"]
     assert d["pack_fill_ns"] <= d["pack_ns"]
     assert d["pack_fill_bytes"] == flats[0].nbytes
+    assert d["compact_scan_bytes"] == flats[0].nbytes
+
+
+def test_reused_flat_fill_and_scan_follow_the_record():
+    from cuda_vp9_torch.decoder.frame import NativeVp9Decoder
+    from cuda_vp9_torch.runtime import pack
+    from cuda_vp9_torch.runtime.upload import Uploader
+    up, got, flat = Uploader("cpu"), [], {}
+
+    def recon_fn(plan, refs):
+        h = plan.hdr
+        caps = pack.compute_caps(h.mi_rows, h.mi_cols, "full", False)
+        if not flat:
+            flat["layout"] = pack.build_layout(caps, h.mi_rows, h.mi_cols,
+                                               False, h.bit_depth)
+            flat["flat"] = native.RecordedFlat.zeros(flat["layout"].size)
+        f = flat["flat"]
+        recorded = int(f.written.sum())
+        c0 = native.counters()
+        assert plan.native_parser.pack(plan, refs, caps, flat["layout"],
+                                       out=f) is f
+        up.stage([f])
+        c1 = native.counters()
+        got.append((recorded, int(f.written.sum()),
+                    int(f.reshape(-1, 512).any(axis=1).sum()),
+                    c1["pack_fill_bytes"] - c0["pack_fill_bytes"],
+                    c1["compact_scan_bytes"] - c0["compact_scan_bytes"]))
+        ha, wa = ((h.mi_rows + 7) & ~7) * 8, ((h.mi_cols + 7) & ~7) * 8
+        return [np.zeros((ha, wa), np.uint16)] + [
+            np.zeros((ha >> 1, wa >> 1), np.uint16)] * 2
+
+    dec = NativeVp9Decoder(recon_fn=recon_fn)
+    for data in _packets("kf01_64x64", 3):
+        dec.decode(data)
+    nbytes = flat["flat"].nbytes
+    assert len(got) == 3 and got[0][0] == got[0][3] == 0
+    for i, (last, rec, nz, fill, scan) in enumerate(got):
+        assert fill == 1024 * last and scan == 1024 * rec
+        assert 1024 * nz <= scan <= nbytes, i
+        if i:
+            assert 0 < fill < nbytes, i
 
 
 def _readback(make):
